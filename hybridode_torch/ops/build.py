@@ -1,0 +1,88 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source `ops/csrc/<name>.cu` compiles on its own, at first use, into a
+shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC -Xptxas -v
+
+without `--use_fast_math` (expf, powf, tanhf and division stay accurate). The
+library goes into `.torch_ext_build/` at the root of the checkout, named by a
+hash of the source and the flags, so a changed source is rebuilt and an
+unchanged one is loaded as it is. `build_all` starts one nvcc per source, all
+together, and waits for them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.normpath(os.path.join(CSRC, os.pardir, os.pardir, os.pardir, ".torch_ext_build"))
+KERNELS = ("roche_rk4",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+@dataclass(frozen=True)
+class Built:
+    name: str
+    path: str
+    seconds: float  # 0.0 when the library was already built
+    log: str  # nvcc's output (ptxas registers, shared memory and spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> tuple[str, str]:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def build_all(names=KERNELS) -> dict[str, Built]:
+    """Compile every named kernel that is not built yet, in parallel; raise if any fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    started, done = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        src, lib = _target(name)
+        if os.path.exists(lib):
+            done[name] = Built(name, lib, 0.0, "")
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        started[name] = (lib, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (lib, tmp, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent builder never loads a half-written library
+        done[name] = Built(name, lib, time.perf_counter() - t0, log)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return done
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of one kernel, compiled first if need be."""
+    return ctypes.CDLL(build_all((name,))[name].path)
