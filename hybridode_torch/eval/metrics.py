@@ -5,9 +5,10 @@ Counterpart of `crps_ensemble`, `bootstrap_rmse`, `_masked_mean_sq_err`,
 reference's 4-line CSV tail ("rmse_z0,... / rmse_x,... / cprs_z0,... /
 cprs_x,...") printed verbatim.
 
-Where JAX vmaps the `mc_itr` posterior decodes, the port flattens them into
-one batch of `mc_itr * B` trajectories: one RK4 solve (one kernel launch on
-the GPU) for the MC decodes of a chunk, plus one for the point decode.
+Where JAX vmaps the `mc_itr` posterior decodes, the port flattens the point
+decode and the MC decodes of a chunk into one batch of `(mc_itr + 1) * B`
+trajectories: one RK4 solve (one kernel launch on the GPU) per chunk. Each
+trajectory's arithmetic is the same as in separate decodes.
 """
 
 from __future__ import annotations
@@ -53,15 +54,16 @@ def _masked_mean_sq_err(x, x_hat, mask, dims):
 
 def _chunk_forward(params, model: VIModel, batch, t0: int, eps):
     """Encode on [0, t0), decode the full horizon from the posterior mean and from
-    the MC draws z = mu + eps * std, eps (MC, B, D)."""
+    the MC draws z = mu + eps * std, eps (MC, B, D), in one decode of (MC + 1) * B latents."""
     mu, log_var = encode(params, model, batch["measurements"][:t0], batch["actions"][:t0], batch["masks"][:t0])
-    x_hat, _ = decode(params, model, mu, batch)
-
     mc, B, D = eps.shape
     z_mc = priors.gaussian_reparameterize(mu, log_var, eps)  # (MC, B, D)
-    actions_mc = batch["actions"].repeat(1, mc, 1)  # (T, MC*B, A), MC-major like z_mc.reshape
-    x_mc, _ = decode(params, model, z_mc.reshape(mc * B, D), {"actions": actions_mc})
-    x_mc = x_mc.reshape(x_mc.shape[0], mc, B, -1).transpose(0, 1)  # (MC, T, B, obs)
+    z_all = torch.cat([mu[None], z_mc]).reshape((mc + 1) * B, D)  # the mean first, then the draws MC-major
+    actions_all = batch["actions"].repeat(1, mc + 1, 1)  # (T, (MC+1)*B, A), in z_all's order
+    x_all, _ = decode(params, model, z_all, {"actions": actions_all})
+    x_all = x_all.reshape(x_all.shape[0], mc + 1, B, -1)
+    x_hat = x_all[:, 0]  # (T, B, obs)
+    x_mc = x_all[:, 1:].transpose(0, 1)  # (MC, T, B, obs)
     return mu, x_hat, z_mc, x_mc
 
 

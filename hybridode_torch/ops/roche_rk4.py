@@ -2,10 +2,14 @@
 
 Port of the Pallas TPU kernel `roche_rk4_trajectory`
 (hybridode/ops/pallas/roche_kernel.py:114, pl.pallas_call at :151). The
-kernel (`csrc/roche_rk4.cu`, one thread per trajectory) integrates the
-expert-PK/PD ++ tanh-remainder field with `n_substeps` RK4 steps per grid
-interval and writes only the T grid states. It is forward-only: evaluation's
-posterior decodes need no gradient.
+kernel (`csrc/roche_rk4.cu`) integrates the expert-PK/PD ++ tanh-remainder
+field with `n_substeps` RK4 steps per grid interval and writes only the T
+grid states. It is forward-only: evaluation's posterior decodes need no
+gradient. One thread integrates one trajectory; Hill exponents of exactly 2
+(the repo's) are taken as x * x, not powf, and the dose term is computed
+once per step. What bounds it is one warp's serial stream through the field
+evaluations, so its time is nearly flat in B; the kernel's header says more,
+and `roche_rk4_study.py` at the root of the checkout measures it.
 
 `roche_rk4_trajectory` launches the kernel on CUDA tensors and raises on
 anything it cannot take; on CPU tensors it runs the plain version
@@ -60,8 +64,7 @@ def roche_rk4_trajectory(y0, times, amounts, expert_params, ml_w, ml_b, ts, n_su
     params = torch.stack([expert_params[name].reshape(()) for name in ROCHE_PARAM_NAMES])
     B, D, T = _check(y0, times, amounts, params, ml_w, ml_b, ts, n_substeps)
     out = torch.empty((T, B, D), dtype=torch.float32, device=y0.device)
-    lib = _library()
-    err = lib.roche_rk4_trajectory_launch(
+    err = _library().roche_rk4_trajectory_launch(
         y0.data_ptr(), times.data_ptr(), amounts.data_ptr(), params.data_ptr(),
         None if ml_w is None else ml_w.data_ptr(), None if ml_b is None else ml_b.data_ptr(),
         ts.data_ptr(), out.data_ptr(), B, D, T, int(n_substeps),
@@ -120,6 +123,18 @@ def _library():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib
+
+
+def kernel_info(D: int) -> dict:
+    """Registers and local (spill) bytes a thread of the built D-state kernel."""
+    fn = _library().roche_rk4_kernel_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    vals = [ctypes.c_int(0) for _ in range(2)]
+    err = fn(int(D), *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"roche_rk4_kernel_info(D={D}) failed: cudaError_t {err}")
+    return dict(zip(("registers", "local_bytes"), (v.value for v in vals)))
 
 
 def roche_rk4_flops(B: int, D: int, T: int, n_substeps: int) -> int:

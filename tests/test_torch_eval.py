@@ -32,9 +32,9 @@ from hybridode_torch.cli.common import build_sim_model
 from hybridode_torch.config import DataConfig
 from hybridode_torch.convert import params_from_jax
 from hybridode_torch.data import SyntheticCohort
-from hybridode_torch.eval import crps_ensemble, evaluate
+from hybridode_torch.eval import crps_ensemble, evaluate, metrics
 from hybridode_torch.eval.metrics import _eval_chunk
-from hybridode_torch.inference import init_vi
+from hybridode_torch.inference import elbo, init_vi
 from hybridode_torch.models import decoders, priors
 from hybridode_torch.ops import roche_rk4
 
@@ -134,6 +134,36 @@ def test_eval_chunk_matches_jax(cohorts):
     for name, g, w in zip(("err_z0", "err_x", "crps_z0", "crps_x"), got, want):
         assert tuple(g.shape) == (B,) and bool(torch.isfinite(g).all()), name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_chunk_forward_decodes_once_as_two_separate_decodes(cohorts, monkeypatch):
+    _, c = cohorts
+    _, m = _models()
+    params = init_vi(torch.Generator().manual_seed(5), m, device="cpu")
+    batch = c.get_split("test", B, 0)
+    eps = torch.from_numpy(np.random.RandomState(5).randn(MC, B, 6).astype(np.float32))
+    calls = []
+
+    def counting_decode(*args):
+        calls.append(args[2].shape[0])
+        return elbo.decode(*args)
+
+    monkeypatch.setattr(metrics, "decode", counting_decode)
+    with torch.no_grad():
+        mu, x_hat, z_mc, x_mc = metrics._chunk_forward(params, m, batch, T0, eps)
+        # The two decodes of the earlier design: the posterior mean, then the MC draws flattened MC-major.
+        want_mu, log_var = elbo.encode(params, m, batch["measurements"][:T0], batch["actions"][:T0],
+                                       batch["masks"][:T0])
+        want_x_hat, _ = elbo.decode(params, m, want_mu, batch)
+        want_z_mc = priors.gaussian_reparameterize(want_mu, log_var, eps)
+        want_x_mc, _ = elbo.decode(params, m, want_z_mc.reshape(MC * B, 6),
+                                   {"actions": batch["actions"].repeat(1, MC, 1)})
+        want_x_mc = want_x_mc.reshape(want_x_mc.shape[0], MC, B, -1).transpose(0, 1)
+    assert calls == [(MC + 1) * B]
+    for name, g, w in zip(("mu", "x_hat", "z_mc", "x_mc"), (mu, x_hat, z_mc, x_mc),
+                          (want_mu, want_x_hat, want_z_mc, want_x_mc)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6, msg=name)
 
 
 def test_evaluate_prints_the_csv_contract(capsys):

@@ -5,8 +5,9 @@ no-pad case - and a batch of 7) with their tolerances rtol=2e-3, atol=5e-4
 (summation-order differences amplified near the |x|**p kink). The Pallas
 kernel runs with interpret=True, as the JAX package's own tests run it.
 
-The `cuda` case holds the CUDA kernel against the plain version on the card
-and skips without one. JAX is imported inside the helpers only, so that case
+The `cuda` cases hold the CUDA kernel against the plain version on the card
+(evaluate's batch, ragged batches, every width, Hill exponents of exactly 2
+and others, Hill states crossing zero) and skip without one. JAX is imported inside the helpers only, so that case
 also runs where JAX is not installed:
 `python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_roche_rk4.py`.
 """
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from hybridode_torch.config import RocheConfig
 from hybridode_torch.convert import params_from_jax
 from hybridode_torch.fields import init_roche_field
 from hybridode_torch.ops import roche_rk4
@@ -116,23 +118,54 @@ def test_kernel_argument_checks(bad):
         _check(**args)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,D", [(2500, 6), (50, 6), (1000, 4), (1000, 8), (7, 6)])
-def test_cuda_kernel_matches_plain_version(cuda_device, B, D):
-    gen = torch.Generator().manual_seed(B + D)
-    field = init_roche_field(gen, D, device="cpu")
+def _cuda_args(device, B, D, seed, hill=None, signed=False):
+    """Kernel inputs on the card; `hill` replaces both Hill exponents, `signed` starts the Hill states
+    (ImmuneReact, Immunity) on both sides of zero."""
+    gen = torch.Generator().manual_seed(seed)
+    config = RocheConfig() if hill is None else RocheConfig(HillCure=hill, HillPatho=hill)
+    field = init_roche_field(gen, D, config, device="cpu")
     y0 = torch.exp(0.3 * torch.randn(B, D, generator=gen)) / 10
+    if signed:
+        y0[:, 1:3] = 0.05 * torch.randn(B, 2, generator=gen)
     times = torch.randint(0, 14, (B,), generator=gen).float()
     amounts = torch.rand(B, generator=gen) * 10
     ml = field["ml_net"][0] if D > 4 else None
-    dev = lambda x: None if x is None else x.detach().to(cuda_device)  # noqa: E731
-    args = (dev(y0), dev(times), dev(amounts), {k: dev(field["expert"][k]) for k in field["expert"].keys()},
+    dev = lambda x: None if x is None else x.detach().to(device)  # noqa: E731
+    return (dev(y0), dev(times), dev(amounts), {k: dev(field["expert"][k]) for k in field["expert"].keys()},
             dev(None if ml is None else ml["w"]), dev(None if ml is None else ml["b"]),
-            torch.arange(15.0, device=cuda_device), 8)
+            torch.arange(15.0, device=device), 8)
+
+
+def _kernel_vs_plain(args):
     roche_rk4.roche_rk4_trajectory.launches = 0
     with torch.no_grad():
         got = roche_rk4_trajectory(*args)
         want = roche_rk4_trajectory_reference(*args)
     torch.cuda.synchronize()
     assert roche_rk4.roche_rk4_trajectory.launches == 1
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=CUDA_RTOL, atol=CUDA_ATOL)
+    return got
+
+
+# (2550, 6) is evaluate's launch; 7 and 2551 are ragged against the block of 128 threads;
+# D = 5 and 7 are the odd remainder widths.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D", [(2500, 6), (50, 6), (1000, 4), (1000, 8), (7, 6), (2550, 6), (2551, 6), (333, 5),
+                                 (1001, 7)])
+def test_cuda_kernel_matches_plain_version(cuda_device, B, D):
+    _kernel_vs_plain(_cuda_args(cuda_device, B, D, seed=B + D))
+
+
+# 2.0 takes the kernel's x * x solve, 1.0 and 1.7 the general powf (1.0 needs the |x|); `signed`
+# starts the Hill states on both sides of zero, where |x|**p has its kink.
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [False, True], ids=["positive", "crossing_zero"])
+@pytest.mark.parametrize("hill", [2.0, 1.0, 1.7])
+@pytest.mark.parametrize("B", [2550, 7])
+def test_cuda_kernel_hill_exponents(cuda_device, B, hill, signed):
+    args = _cuda_args(cuda_device, B, 6, seed=B, hill=hill, signed=signed)
+    got = _kernel_vs_plain(args)
+    if signed:
+        ir = torch.cat([args[0][None, :, 1], got[:, :, 1]])
+        assert bool(((ir[:-1] < 0) & (ir[1:] > 0)).any())  # some ImmuneReact crosses zero
