@@ -22,6 +22,19 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    patients, 4 in all); launch counts read around that run, then
    EVAL_REPEATS more timed runs for the spread; the same evaluation on the
    CPU (plain path) must agree within METRIC_RTOL.
+5. Train: the port's `run_simulation.run` (the CLI's entry point) on
+   data_s123 at the same width, `--method hybrid` with per-patient DOPRI5
+   (max_steps=256), batch 50, one restart of TRAIN_ITERS iterations with
+   forecast validation every TRAIN_TEST_FREQ, a checkpoint, then the CLI's
+   `evaluate` decoding with DOPRI5; once on the GPU and once on the CPU from
+   the same seed. The `train` line gives seconds per iteration (median) on
+   both, the GPU `evaluate` seconds, the steps of the first training batch's
+   per-patient decode, the largest relative differences between the two
+   curves and between the four metrics (each must stay within TRAIN_RTOL),
+   and, from one training iteration under torch.profiler, its CUDA kernel
+   launches and the share of its wall time the GPU was busy. No kernel of the
+   port is on this path (the RK4 kernel is forward-only): its launches there
+   must stay 0.
 
 The last lines are the `kernels` JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -32,10 +45,12 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Kernel against its plain version on the same card: float32 rounding of two
@@ -53,6 +68,10 @@ EVAL_LAUNCHES = 4  # one per chunk of the 200-patient test fold at batch 50
 EVAL_REPEATS = 5  # further timed GPU evaluations after the counted one
 # (B, D, Hill exponent or None for the cohort's 2.0). The first is evaluate's shape:
 # (50 MC + 1) x 50 patients; the next two are the two launches a chunk took before.
+# Phase 5: the training run (OptimConfig(shuffle=False, niters=6, test_freq=2, early_stop=10)) and the
+# agreement its GPU and CPU runs must keep (curves and metrics: float32 solves whose step sequences may differ).
+TRAIN_ITERS, TRAIN_TEST_FREQ, TRAIN_BATCH = 6, 2, 50
+TRAIN_RTOL = 1e-3
 KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None), (1000, 8, None), (7, 6, None),
                 (2550, 6, 1.7)]
 
@@ -202,6 +221,179 @@ def phase_slice(cohort, args):
     return launches
 
 
+def _rel_diff(a: float, b: float) -> float:
+    """|a - b| / |b|; 0 when both are the same non-finite value, inf when only one is finite."""
+    if not (math.isfinite(a) and math.isfinite(b)):
+        return 0.0 if (a == b or (a != a and b != b)) else math.inf
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _train_run(device, seed, tmp):
+    """The CLI's run on `device`; -> its curve, per-step seconds, evaluate seconds and scores, params, model."""
+    from hybridode_torch.cli import run_simulation
+    from hybridode_torch.config import DataConfig, EvalConfig, OptimConfig
+
+    optim = OptimConfig(shuffle=False, niters=TRAIN_ITERS, test_freq=TRAIN_TEST_FREQ, early_stop=10, n_restart=1,
+                        batch_size=TRAIN_BATCH)
+    path, curve_path, events_path = tmp + "/", os.path.join(tmp, "curve.csv"), os.path.join(tmp, "events.jsonl")
+    t = time.perf_counter()
+    params, model, scores = run_simulation.run(
+        seed=seed, elbo=True, eval_only=False, init_path=None, data_path=COHORT, sample=1000,
+        data_config=DataConfig(), model_method="hybrid", path=path, optim_config=optim,
+        eval_config=EvalConfig(t0=5), val_criterion="forecast", curve_path=curve_path, events_path=events_path,
+        device=device)
+    seconds = time.perf_counter() - t
+    with open(curve_path) as f:
+        curve = [[float(x) for x in ln.split(",")] for ln in f if ln.strip()]
+    with open(events_path) as f:
+        events = [json.loads(ln) for ln in f]
+    steps = [e for e in events if e["event"] == "step"]
+    return dict(curve=curve, step_s=[e["seconds"] for e in steps], first_loss=steps[0]["train_loss"],
+                evaluate=next(e for e in events if e["event"] == "evaluate"), seconds=seconds,
+                checkpoint=os.path.exists(path + model.model_name)), params, model, scores
+
+
+def _aten_counter():
+    """A dispatch mode that counts the ATen calls made under it (forward, backward, optimizer)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def _first_batch_steps(model, seed, device="cuda"):
+    """Step counts of iteration 1's decode: run()'s first draws (init, the loop's mini-batch seed, the ELBO's
+    eps) replayed from the seed, on the first training batch (chunk 1 % train_chunk, as the loop takes it)."""
+    import torch
+
+    from hybridode_torch.data import SyntheticCohort
+    from hybridode_torch.fields import doses_from_actions, roche_field
+    from hybridode_torch.inference import elbo, init_vi
+    from hybridode_torch.models import priors
+    from hybridode_torch.solvers import odeint_dopri5
+
+    gen = torch.Generator().manual_seed(seed)
+    params = init_vi(gen, model, device=device)
+    torch.randint(0, 2**31 - 1, (), generator=gen)
+    eps, eps_kl = elbo.draw_noise(model, TRAIN_BATCH, gen, device)
+    cohort = SyntheticCohort.load(COHORT, device=device)
+    cohort.set_train_size(1000)
+    batch = cohort.get_split("train", TRAIN_BATCH, 1 % max(1, cohort.train_size // TRAIN_BATCH))
+    spec = model.decoder_spec
+    with torch.no_grad():
+        loss = elbo.sim_loss(params, model, batch, eps=eps, eps_kl=eps_kl).item()
+        mu, log_var = elbo.encode(params, model, batch["measurements"], batch["actions"], batch["masks"])
+        z = priors.gaussian_reparameterize(mu, log_var, eps)
+        with _aten_counter() as count:
+            _, st = odeint_dopri5(roche_field, z, torch.as_tensor(spec.ts, device=device),
+                                  (params["decoder"]["ode"], doses_from_actions(batch["actions"], spec.step_size)),
+                                  rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps, per_row=True)
+    acc, trial = st.n_accepted.float(), st.n_steps.float()
+    run = 64 * math.ceil(int(trial.max()) / 64)  # the loop stops at the first chunk boundary after the slowest row
+    return dict(accepted_max=int(acc.max()), accepted_mean=acc.mean().item(), trial_max=int(trial.max()),
+                trial_mean=trial.mean().item(), trial_steps_run=run, aten_calls_solve=count.calls,
+                aten_calls_per_trial_step=count.calls / run, success=bool(st.success.all()), loss=loss), batch
+
+
+def _profile_step(params, model, batch, seed):
+    """One training iteration with and without torch.profiler: CUDA kernels, host launch calls, busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hybridode_torch.config import OptimConfig
+    from hybridode_torch.inference import make_optimizer, train_step
+
+    optimizer = make_optimizer(OptimConfig().lr, params)
+
+    def step():
+        t = time.perf_counter()
+        loss = train_step(params, optimizer, model, batch, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, loss.item()
+
+    with _aten_counter() as count:
+        step()  # also the warm-up of the optimizer state
+    plain_s, _ = step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_s, loss = step()
+    events = prof.events()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    busy, end = 0.0, -math.inf
+    for a, b in kernels:  # union of the kernels' intervals, in microseconds
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return dict(step_s=plain_s, profiled_step_s=profiled_s, aten_calls=count.calls, cuda_kernels=len(kernels),
+                launch_calls=launches,
+                device_busy_us=busy if kernels else None,
+                busy_share=(busy * 1e-6 / plain_s) if kernels else None,
+                busy_share_profiled=(busy * 1e-6 / profiled_s) if kernels else None, loss=loss)
+
+
+def phase_train(args):
+    import torch
+
+    from hybridode_torch.ops import roche_rk4
+
+    t0 = time.perf_counter()
+    roche_rk4.roche_rk4_trajectory.launches = 0
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["cuda"], params, model, gpu_scores = _train_run("cuda", args.seed, os.path.join(tmp, "gpu"))
+        torch.cuda.synchronize()
+        rk4_launches = roche_rk4.roche_rk4_trajectory.launches
+        runs["cpu"], _, _, cpu_scores = _train_run("cpu", args.seed, os.path.join(tmp, "cpu"))
+    steps, batch = _first_batch_steps(model, args.seed)
+    prof = _profile_step(params, model, batch, args.seed)
+
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    names = ("rmse_z0", "cprs_z0", "rmse_x", "cprs_x")
+    gpu_m = dict(zip(names, (gpu_scores[0], gpu_scores[2], gpu_scores[3], gpu_scores[5])))
+    cpu_m = dict(zip(names, (cpu_scores[0], cpu_scores[2], cpu_scores[3], cpu_scores[5])))
+    gpu_losses = [v for row in gpu["curve"] for v in row[1:]]
+    cpu_losses = [v for row in cpu["curve"] for v in row[1:]]
+    curve_diff = max((_rel_diff(a, b) for a, b in zip(gpu_losses, cpu_losses)), default=math.inf)
+    metric_diff = max(_rel_diff(gpu_m[k], cpu_m[k]) for k in names)
+    line = dict(
+        seconds=time.perf_counter() - t0,
+        iter_s_gpu=statistics.median(gpu["step_s"]), iter_s_cpu=statistics.median(cpu["step_s"]),
+        iter_s_gpu_all=gpu["step_s"], iter_s_cpu_all=cpu["step_s"],
+        evaluate_s_gpu=gpu["evaluate"]["seconds"], evaluate_s_cpu=cpu["evaluate"]["seconds"],
+        run_s_gpu=gpu["seconds"], run_s_cpu=cpu["seconds"],
+        first_batch_steps=steps, first_loss_gpu=gpu["first_loss"],
+        curve_gpu=gpu["curve"], curve_cpu=cpu["curve"], curve_max_rel_diff=curve_diff,
+        gpu=gpu_m, cpu=cpu_m, metric_max_rel_diff=metric_diff,
+        profile=prof, roche_rk4_launches=rk4_launches, checkpoint_gpu=gpu["checkpoint"],
+        checkpoint_cpu=cpu["checkpoint"],
+    )
+    print("train " + json.dumps(line), flush=True)
+
+    finite = lambda v: v == v and abs(v) != math.inf  # noqa: E731
+    for k in names:
+        if finite(cpu_m[k]) and not finite(gpu_m[k]):
+            raise SystemExit(f"{k}: non-finite on the GPU ({gpu_m[k]}) where the CPU's is {cpu_m[k]}")
+    for a, b in zip(gpu_losses, cpu_losses):
+        if finite(b) and not finite(a):
+            raise SystemExit(f"a GPU training or validation loss is non-finite ({a}) where the CPU's is {b}")
+    if len(gpu["curve"]) != TRAIN_ITERS // TRAIN_TEST_FREQ or len(gpu["curve"]) != len(cpu["curve"]):
+        raise SystemExit(f"curves of {len(gpu['curve'])} (GPU) and {len(cpu['curve'])} (CPU) validations, "
+                         f"expected {TRAIN_ITERS // TRAIN_TEST_FREQ}")
+    if curve_diff > TRAIN_RTOL or metric_diff > TRAIN_RTOL:
+        raise SystemExit(f"GPU vs CPU beyond rtol={TRAIN_RTOL}: curve {curve_diff}, metrics {metric_diff}")
+    if not (gpu["checkpoint"] and cpu["checkpoint"]):
+        raise SystemExit("the training run wrote no checkpoint")
+    if rk4_launches:
+        raise SystemExit(f"the RK4 kernel was launched {rk4_launches} times on the DOPRI5 training path")
+    return line
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ckpt", default=None, help="checkpoint path prefix written by either package")
@@ -235,6 +427,7 @@ def main(argv=None) -> int:
     cohort = SyntheticCohort.load(COHORT, device="cuda")
     rows = phase_kernels(cohort, args.seed)
     launches = phase_slice(cohort, args)
+    phase_train(args)
 
     main_row = rows[0]  # B=2550: the one launch of each chunk of evaluate
     print(json.dumps({"kernels": [dict(

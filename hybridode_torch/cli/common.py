@@ -1,16 +1,23 @@
-"""Method string -> VIModel (counterpart of `build_sim_model`, hybridode/cli/common.py:38-112).
+"""Shared CLI plumbing (counterpart of `resolve_data_config` and `build_sim_model`, hybridode/cli/common.py:30-112).
 
-Same signature and the same spec values as the JAX package, including
-`max_steps` and `per_sample_control`, which this slice's RK4 decoder does not
-read. The flow posterior is not ported yet.
+Same signatures and the same spec values as the JAX package. The flow
+posterior is not ported yet.
 """
 
 from __future__ import annotations
 
-from ..config import DataConfig
+from ..config import DataConfig, dim8_config, dim12_config
 from ..inference.elbo import VIModel
 from ..models.decoders import SimDecoderSpec
 from ..models.encoders import EncoderLSTMSpec
+
+
+def resolve_data_config(name: str | None, sample: int) -> DataConfig:
+    if name == "dim8":
+        return dim8_config
+    if name == "dim12":
+        return dim12_config
+    return DataConfig(n_sample=sample)
 
 
 def build_sim_model(
@@ -46,6 +53,9 @@ def build_sim_model(
     prior = None if neural else "exponential"
     roche = not neural
     if max_steps is None:
+        # Roche fields: per-patient control (~112 accepted steps per patient
+        # at most, plus rejections); the smooth neural field solves in
+        # lockstep in ~25 steps and keeps the generous budget.
         max_steps = (4096 if lockstep else 256) if roche else 512
 
     hidden = int(obs * 2.0)  # encoder_latent_ratio=2.0

@@ -1,0 +1,210 @@
+"""Simulation-study CLI: train and evaluate expert / neural / hybrid LHM models.
+
+    python -m hybridode_torch.cli.run_simulation --method hybrid --restart 1 --arg_itr 4 \
+        --data_path data_s123/datafile_dose_exp.pkl --path model/v_
+
+Counterpart of hybridode/cli/run_simulation.py: the same flags and the same
+stdout (`Training with N samples`, the `Iter NNNN | Total Loss ... | Train
+Loss ...` lines, `Time:`, `Overall best loss:` and the 4-line CSV of
+`evaluate`), the n_restart loop with a best-on-disk shared across restarts,
+frozen expert constants, then `evaluate` at t0.
+
+It runs on the GPU; `--device c` asks for the CPU (the JAX package keeps the
+flag for interface parity and ignores it). All noise comes from one CPU
+`torch.Generator` seeded with `--seed`, drawn in turn by each restart's
+initialisation, its training and the final evaluation, so a CPU run and a
+GPU run from one seed see the same weights and the same noise.
+
+Not ported: `--restart_mode vmap|shard`, `--dp` above 1 and `--eval_mesh`
+(ROADMAP.md, queue 1, item 10), `--step_control lockstep` (item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import resolve_device
+from ..config import EvalConfig, OptimConfig
+from ..data import SyntheticCohort
+from ..eval import evaluate
+from ..inference import init_vi, load_checkpoint, variational_training_loop
+from ..utils.logging import JSONLLogger
+from . import common
+
+SCORE_NAMES = ("rmse_z0", "rmse_z0_sd", "cprs_z0", "rmse_x", "rmse_x_sd", "cprs_x")
+
+
+def _refuse_unported(dp_devices, eval_mesh, lockstep, restart_mode):
+    if restart_mode != "seq":
+        raise NotImplementedError(f"--restart_mode={restart_mode} is not ported yet (ROADMAP.md, queue 1, item 10)")
+    if dp_devices is not None and dp_devices > 1:
+        raise NotImplementedError("--dp above 1 is not ported yet (ROADMAP.md, queue 1, item 10)")
+    if eval_mesh is not None:
+        raise NotImplementedError("--eval_mesh is not ported yet (ROADMAP.md, queue 1, item 10)")
+    if lockstep:
+        raise NotImplementedError("--step_control lockstep is not ported yet (ROADMAP.md, queue 1, item 9)")
+
+
+def run(
+    seed: int,
+    elbo: bool,
+    eval_only: bool,
+    init_path: str | None,
+    data_path: str,
+    sample: int,
+    data_config,
+    model_method: str,
+    path: str,
+    optim_config: OptimConfig,
+    eval_config: EvalConfig,
+    encoder_output_dim=None,
+    ablate: bool = False,
+    arg_itr: int | None = None,
+    val_criterion: str = "forecast",
+    curve_path: str | None = None,
+    events_path: str | None = None,
+    dp_devices: int | None = None,
+    eval_mesh: tuple[int, int] | None = None,
+    lockstep: bool = False,
+    restart_mode: str = "seq",
+    restart_devices: int | None = None,
+    device=None,
+):
+    """Train n_restart times, then evaluate; -> (params, model, the six numbers of `evaluate`).
+
+    `restart_devices` belongs to the unported `--restart_mode shard` and is
+    accepted for signature parity. The event log gets an `evaluate` record
+    with its seconds and scores after the training loop's records.
+    """
+    device = resolve_device(device)
+    _refuse_unported(dp_devices, eval_mesh, lockstep, restart_mode)
+    generator = torch.Generator().manual_seed(seed)
+
+    dg = SyntheticCohort.load(data_path, device=device)
+    if not eval_only:
+        dg.set_train_size(sample)
+    print("Training with {} samples".format(sample))
+
+    model = common.build_sim_model(
+        model_method,
+        data_config,
+        encoder_output_dim=encoder_output_dim,
+        elbo=elbo,
+        ode_method=optim_config.ode_method,
+        ablate=ablate,
+        lockstep=lockstep,
+    )
+
+    niters = optim_config.niters if arg_itr is None else arg_itr
+    best_on_disk = 1e9
+    params = None
+    for _ in range(optim_config.n_restart):
+        params = init_vi(generator, model, device=device)
+        if eval_only:
+            break
+        if init_path is not None:
+            params, _, _ = load_checkpoint(init_path, model.model_name, device)
+        params, best_on_disk, _ = variational_training_loop(
+            niters=niters,
+            data_generator=dg,
+            model=model,
+            params=params,
+            batch_size=optim_config.batch_size,
+            lr=optim_config.lr,
+            test_freq=optim_config.test_freq,
+            generator=generator,
+            path=path,
+            best_on_disk=best_on_disk,
+            early_stop=optim_config.early_stop,
+            shuffle=optim_config.shuffle,
+            val_criterion=val_criterion,
+            val_t0=eval_config.t0,
+            # The curve and event logs keep the LAST restart's trajectory.
+            curve_path=curve_path,
+            events_path=events_path,
+        )
+
+    if eval_only:
+        params, _, best_loss = load_checkpoint(path, model.model_name, device)
+        print("Overall best loss: {:.6f}".format(best_loss))
+
+    t = time.perf_counter()
+    scores = evaluate(params, model, dg, optim_config.batch_size, eval_config.t0, generator=generator, device=device)
+    events = JSONLLogger(events_path)
+    events.log("evaluate", seconds=time.perf_counter() - t, **dict(zip(SCORE_NAMES, scores)))
+    events.close()
+    return params, model, scores
+
+
+def build_parser():
+    parser = argparse.ArgumentParser("PKPD simulation")
+    parser.add_argument("--method", choices=["expert", "neural", "hybrid"], default="hybrid", type=str)
+    parser.add_argument("--device", choices=["0", "1", "c"], default="1", type=str,
+                        help="c: run on the CPU; 0 or 1: run on the GPU")
+    parser.add_argument("--seed", default=666, type=int)
+    parser.add_argument("--sample", default=1000, type=int)
+    parser.add_argument("--path", default=None, type=str)
+    parser.add_argument("--restart", default=3, type=int)
+    parser.add_argument("--arg_itr", default=None, type=int)
+    parser.add_argument("--eval", default="n", type=str)
+    parser.add_argument("--elbo", default="y", type=str)
+    parser.add_argument("--init", default=None, type=str)
+    parser.add_argument("--batch_size", default=50, type=int)
+    parser.add_argument("--t0", default=5, type=int)
+    parser.add_argument("--lr", default=0.01, type=float)
+    parser.add_argument("--data_config", default=None, type=str)
+    parser.add_argument("--encoder_output_dim", default=None, type=int)
+    parser.add_argument("--data_path", default="data/datafile_dose_exp.pkl", type=str)
+    parser.add_argument("--ablate", default=False, type=bool)
+    # "forecast" selects checkpoints on the t0-forecast error (the test
+    # figure of merit); "elbo" is the reference's full-sequence val loss.
+    parser.add_argument("--val_criterion", choices=["forecast", "elbo"], default="forecast", type=str)
+    parser.add_argument("--curve_path", default=None, type=str,
+                        help="write iter,val_loss,train_loss CSV (exp_lhm.csv format)")
+    parser.add_argument("--events_path", default=None, type=str, help="append JSONL training events")
+    parser.add_argument("--step_control", choices=["per_sample", "lockstep"], default="per_sample", type=str,
+                        help="adaptive step controller granularity: per-sample (default) or lockstep (not ported)")
+    parser.add_argument("--dp", default=0, type=int, help="data-parallel device count (above 1: not ported)")
+    parser.add_argument("--restart_mode", choices=["seq", "vmap", "shard"], default="seq", type=str,
+                        help="seq: one restart after another (vmap, shard: not ported)")
+    parser.add_argument("--restart_devices", default=0, type=int, help="for --restart_mode=shard (not ported)")
+    parser.add_argument("--eval_mesh", default=None, type=str, help="'DPxMC' evaluation mesh (not ported)")
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    data_config = common.resolve_data_config(args.data_config, args.sample)
+    optim_config = OptimConfig(shuffle=False, n_restart=args.restart, batch_size=args.batch_size, lr=args.lr)
+    run(
+        seed=args.seed,
+        elbo=args.elbo == "y",
+        eval_only=args.eval == "y",
+        init_path=args.init,
+        data_path=args.data_path,
+        sample=args.sample,
+        data_config=data_config,
+        model_method=args.method,
+        path=args.path,
+        optim_config=optim_config,
+        eval_config=EvalConfig(t0=args.t0),
+        encoder_output_dim=args.encoder_output_dim,
+        ablate=args.ablate,
+        arg_itr=args.arg_itr,
+        val_criterion=args.val_criterion,
+        curve_path=args.curve_path,
+        events_path=args.events_path,
+        dp_devices=args.dp if args.dp > 1 else None,
+        eval_mesh=tuple(int(x) for x in args.eval_mesh.split("x")) if args.eval_mesh else None,
+        lockstep=args.step_control == "lockstep",
+        restart_mode=args.restart_mode,
+        restart_devices=args.restart_devices or None,
+        device="cpu" if args.device == "c" else "cuda",
+    )
+
+
+if __name__ == "__main__":
+    main()

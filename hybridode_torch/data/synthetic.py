@@ -1,7 +1,7 @@
 """Synthetic PK/PD cohorts: loading and fold splits.
 
-Counterpart of `SyntheticCohort.load`, `split_sample`, `get_split` and
-`set_train_size` in hybridode/data/synthetic.py:192-257. Generation stays in
+Counterpart of `SyntheticCohort.load`, `split_sample`, `get_mini_batch`,
+`get_split` and `set_train_size` in hybridode/data/synthetic.py:192-257. Generation stays in
 the JAX package; the port reads the cohort files it writes.
 """
 
@@ -52,6 +52,13 @@ class SyntheticCohort:
         if fold not in ("train", "val", "test"):
             raise ValueError(f"unknown fold {fold!r}")
         return {"train": self.data_train, "val": self.data_val, "test": self.data_test}[fold]
+
+    def get_mini_batch(self, fold: str, batch_size: int, rng: np.random.RandomState):
+        """`batch_size` patients of `fold` drawn without replacement by the numpy `rng`."""
+        data = self._fold(fold)
+        n = data["measurements"].shape[1]
+        idx = torch.as_tensor(rng.choice(n, batch_size, replace=False), device=self.device)
+        return {k: torch.index_select(v, 1, idx) for k, v in data.items()}
 
     def get_split(self, fold: str, batch_size: int, chunk: int = 0):
         data = self._fold(fold)

@@ -1,4 +1,21 @@
 from .checkpoint import load_checkpoint, save_checkpoint
-from .elbo import VIModel, decode, encode, init_vi
+from .elbo import PRIORS, VIModel, decode, encode, forecast_loss, init_vi, loss_fn, mc_kl, sim_loss
+from .train import make_eval_loss, make_optimizer, train_step, variational_training_loop
 
-__all__ = ["VIModel", "decode", "encode", "init_vi", "load_checkpoint", "save_checkpoint"]
+__all__ = [
+    "VIModel",
+    "PRIORS",
+    "decode",
+    "encode",
+    "init_vi",
+    "loss_fn",
+    "sim_loss",
+    "mc_kl",
+    "forecast_loss",
+    "load_checkpoint",
+    "save_checkpoint",
+    "make_optimizer",
+    "make_eval_loss",
+    "train_step",
+    "variational_training_loop",
+]

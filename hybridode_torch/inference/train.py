@@ -1,0 +1,174 @@
+"""Adam training with the reference's restart, early-stop and best-on-disk rules.
+
+Counterpart of `make_optimizer`, `make_train_step`, `make_eval_loss` and the
+host loop of `variational_training_loop` in hybridode/inference/train.py.
+
+* The optimizer is `torch.optim.Adam` over the parameters that require a
+  gradient. The 13 expert constants and the ablation thetas are built with
+  `requires_grad=False`, which is what the JAX package's label tree does with
+  `optax.set_to_zero()` (`param_labels`, train.py:31-46): they never change.
+  `train_expert=True` unfreezes them. optax's and PyTorch's Adam compute the
+  same update, `lr * m_hat / (sqrt(v_hat) + eps)`, eps outside the root.
+* The JAX package runs a restart by default as one fused device program
+  (inference/fused.py), which its tests hold equal to its host loop; this
+  host loop is the port's counterpart of both. The fused program and data
+  parallelism are not ported.
+* Solver failure maps to finite-loss gates: a non-finite training loss ends
+  the restart, a non-finite validation chunk adds 1e9.
+
+Each iteration reads its loss on the host once (the finite gate), which is
+the loop's one device sync per step. The event log gets a `step` record per
+iteration with its seconds, beside the JAX package's `val` and `done`.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..fields.roche import FROZEN_KEYS
+from ..utils.logging import CSVCurveLogger, JSONLLogger
+from . import checkpoint as ckpt
+from .elbo import VIModel, forecast_loss, loss_fn
+
+
+def make_optimizer(lr: float, params, train_expert: bool = False) -> torch.optim.Adam:
+    """Adam over the trainable leaves; with `train_expert` the frozen expert leaves train too."""
+    if train_expert:
+        frozen = tuple(f"decoder.ode.{k}" for k in FROZEN_KEYS)
+        for name, p in params.named_parameters():
+            if name.startswith(frozen):
+                p.requires_grad_(True)
+    return torch.optim.Adam([p for p in params.parameters() if p.requires_grad], lr=lr)
+
+
+def train_step(params, optimizer: torch.optim.Optimizer, model: VIModel, batch, generator) -> torch.Tensor:
+    """One Adam step on `loss_fn`; returns the loss (on the device, detached)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(params, model, batch, generator)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def make_eval_loss(model: VIModel, val_criterion: str = "elbo", val_t0: int = 5) -> Callable:
+    """(params, batch, generator) -> validation loss, without gradient."""
+
+    @torch.no_grad()
+    def eval_loss(params, batch, generator):
+        if val_criterion == "forecast":
+            return forecast_loss(params, model, batch, val_t0)
+        return loss_fn(params, model, batch, generator)
+
+    return eval_loss
+
+
+def variational_training_loop(
+    niters: int,
+    data_generator: Any,
+    model: VIModel,
+    params,
+    batch_size: int,
+    lr: float,
+    test_freq: int,
+    generator: torch.Generator,
+    best_on_disk: float = 1e9,
+    early_stop: int = 5,
+    path: str = "model/",
+    shuffle: bool = True,
+    train_fold: str = "train",
+    train_expert: bool = False,
+    verbose: bool = True,
+    curve_path: str | None = None,
+    events_path: str | None = None,
+    val_criterion: str = "elbo",
+    val_t0: int = 5,
+    dp_devices: int | None = None,
+    fused: bool | None = None,
+):
+    """Train `params` in place; return (best params reloaded from disk, best_on_disk, wall seconds).
+
+    `params` and the cohort's tensors live on one device. All noise (the
+    ELBO's draws and the seed of the numpy mini-batch RNG) comes from the CPU
+    `generator`. Checkpoints go to `path + model.model_name` whenever
+    validation beats `best_on_disk`, the best across restarts; the best
+    checkpoint is reloaded at the end, or the current parameters are saved if
+    none was written.
+    """
+    if fused:
+        raise NotImplementedError("the fused whole-restart training program is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 10); the host loop is its counterpart")
+    if dp_devices is not None and dp_devices > 1:
+        raise NotImplementedError("data-parallel training is not ported yet (ROADMAP.md, queue 1, item 10)")
+    device = next(params.parameters()).device
+    optimizer = make_optimizer(lr, params, train_expert)
+    eval_loss = make_eval_loss(model, val_criterion, val_t0)
+
+    best_loss = 1e9
+    early_stop_counter = 0
+    fold_size = data_generator.train_size if train_fold == "train" else data_generator.val_size
+    train_chunk = max(1, fold_size // batch_size)
+    val_chunks = max(1, data_generator.val_size // batch_size)
+
+    curve = CSVCurveLogger(curve_path)
+    events = JSONLLogger(events_path)
+    try:
+        rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=generator)))
+        start = time.time()
+
+        for itr in range(1, niters + 1):
+            t_step = time.perf_counter()
+            if shuffle:
+                batch = data_generator.get_mini_batch(train_fold, batch_size, rng)
+            else:
+                batch = data_generator.get_split(train_fold, batch_size, itr % train_chunk)
+            loss = float(train_step(params, optimizer, model, batch, generator))
+            events.log("step", itr=itr, seconds=time.perf_counter() - t_step, train_loss=loss)
+
+            if not np.isfinite(loss):
+                if verbose:
+                    print("non-finite training loss; stopping this restart")
+                break
+
+            if itr % test_freq == 0:
+                total_loss = 0.0
+                for chunk in range(val_chunks):
+                    vbatch = data_generator.get_split("val", batch_size, chunk)
+                    chunk_loss = float(eval_loss(params, vbatch, generator))
+                    total_loss += chunk_loss if np.isfinite(chunk_loss) else 1e9
+                if verbose:
+                    print("Iter {:04d} | Total Loss {:.6f} | Train Loss {:.6f}".format(itr, total_loss, loss))
+                curve.log(itr, total_loss, loss)
+                events.log("val", itr=itr, val_loss=total_loss, train_loss=loss)
+                if total_loss < best_loss:
+                    best_loss = total_loss
+                    early_stop_counter = 0
+                else:
+                    early_stop_counter += 1
+
+                if total_loss < best_on_disk:
+                    best_on_disk = total_loss
+                    ckpt.save_checkpoint(path, model.model_name, params, itr, best_on_disk)
+
+            if early_stop_counter >= early_stop:
+                break
+
+        wall = time.time() - start
+        events.log("done", wall=wall, best_on_disk=float(best_on_disk))
+    finally:
+        curve.close()
+        events.close()
+
+    try:
+        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
+    except FileNotFoundError:
+        ckpt.save_checkpoint(path, model.model_name, params, 0, best_on_disk)
+        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
+
+    if verbose:
+        print("Time: {}".format(wall))
+        print("Overall best loss: {:.6f}".format(best_on_disk))
+    return best_params, best_on_disk, wall

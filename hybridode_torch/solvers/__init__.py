@@ -1,7 +1,9 @@
-"""Batched ODE integrators (counterpart of hybridode/solvers/__init__.py).
+"""Batched, differentiable ODE integrators (counterpart of hybridode/solvers/__init__.py).
 
-`odeint` is the single entry point. This slice carries the fixed-step
-methods; the adaptive Dormand-Prince solver comes with the training slice.
+`odeint` is the single entry point. Methods:
+
+* "dopri5"          — adaptive Dormand-Prince 5(4), dense output at `ts`
+* "rk4" / "midpoint" / "euler" / "explicit_adams" — fixed-step
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from typing import Any
 
 import torch
 
+from .dopri5 import Dopri5Stats, odeint_dopri5
 from .fixed_step import odeint_fixed
 
 ADAPTIVE_METHODS = ("dopri5",)
@@ -28,16 +31,31 @@ def odeint(
     step_size: float | None = None,
     n_substeps: int | None = None,
     max_steps: int = 256,
+    barriers=None,
 ):
-    """Solve dy/dt = field(t, y, args); return y at `ts`, shape (len(ts), *y0.shape)."""
+    """Solve dy/dt = field(t, y, args); return y at `ts`, shape (len(ts), *y0.shape).
+
+    The whole state integrates in lockstep (one step-size controller).
+    """
     if method in ADAPTIVE_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP.md, queue 1, item 2: per-sample DOPRI5); "
-            f"use one of {FIXED_METHODS}"
-        )
+        ys, _ = odeint_dopri5(field, y0, ts, args, rtol=rtol, atol=atol, max_steps=max_steps, barriers=barriers)
+        return ys
     if method in FIXED_METHODS:
         return odeint_fixed(field, y0, ts, args, method=method, step_size=step_size, n_substeps=n_substeps)
     raise ValueError(f"unknown method {method!r}; choose from {ADAPTIVE_METHODS + FIXED_METHODS}")
 
 
-__all__ = ["odeint", "odeint_fixed", "ADAPTIVE_METHODS", "FIXED_METHODS"]
+def odeint_with_stats(field, y0, ts, args=None, *, rtol=1e-7, atol=1e-8, max_steps=256):
+    """Adaptive lockstep solve that also reports step counts."""
+    return odeint_dopri5(field, y0, ts, args, rtol=rtol, atol=atol, max_steps=max_steps)
+
+
+__all__ = [
+    "odeint",
+    "odeint_with_stats",
+    "odeint_dopri5",
+    "odeint_fixed",
+    "Dopri5Stats",
+    "ADAPTIVE_METHODS",
+    "FIXED_METHODS",
+]

@@ -1,0 +1,256 @@
+"""Batched adaptive Dormand-Prince 5(4) integrator with gradients.
+
+Counterpart of `odeint_dopri5` in hybridode/solvers/dopri5.py:67-291: Hairer's
+initial step, the FSAL trial step, the scaled RMS error norm with its
+floating-point noise floor, the step-size controller, the dense-output fill of
+every grid point a step crosses, NaN at grid points never reached, and
+`barriers`. The arithmetic is the JAX function's, in the same order, so the
+two agree to float32 rounding and take the same steps.
+
+Two controller granularities:
+
+* `per_row=False` (lockstep): one controller for the whole state, whatever
+  its shape; the norms reduce over every element. This is
+  `odeint(method="dopri5")`, torchdiffeq's batched semantics.
+* `per_row=True`: every row of a `(..., D)` state has its own `t`, `h`,
+  `finished` and step counts, and the norms reduce over the last axis. This
+  is the port of the `jax.vmap` of one solve per patient
+  (hybridode/models/decoders.py:114-135), the sim decoder's default. The
+  field then gets a per-row time of shape `y.shape[:-1] + (1,)`, which
+  broadcasts against per-row quantities such as the dose times `(B, K)`.
+
+The JAX function runs a bounded `lax.scan` of masked trial steps in chunks of
+64 and skips a chunk once the solve has finished. Here the same masked step
+runs in a Python loop, and `finished` is read on the host once a chunk (one
+sync per 64 trial steps). Rows that have finished are frozen by the masks, so
+stopping early gives exactly what the full budget of `ceil(max_steps / 64) *
+64` trial steps gives.
+
+Gradients flow through every trial step's masked selects, as through JAX's
+scan (discretize-then-optimize). The initial step, the error norm and the
+next step size are computed without gradient, the counterpart of JAX's
+`stop_gradient` (dopri5.py:207, :233, :246): `norm ** -0.2` at `norm == 0`
+would otherwise put `0 * inf` into the backward pass. As in JAX, a rejected
+trial whose stages overflow can still leave `0 * inf = NaN` in the backward
+pass through the select.
+
+Not ported: `checkpoint_steps` (a `jax.checkpoint` around each trial step).
+Autograd keeps every trial step's intermediates instead: at batch 50, D=6 and
+256 trial steps, the six field evaluations, the stage sums and the dense
+output come to some 0.25 MB a step, tens of MB a solve.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from . import tableaus
+
+Field = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
+
+# Step-size controller constants (torchdiffeq's dopri5 regime).
+_SAFETY = 0.9
+_MIN_FACTOR = 0.2
+_MAX_FACTOR = 10.0
+_ERROR_EXPONENT = -1.0 / 5.0
+_CHUNK_SIZE = 64  # trial steps between two host checks of `finished`
+
+
+class Dopri5Stats(NamedTuple):
+    n_steps: torch.Tensor  # trial steps taken (per row with per_row=True)
+    n_accepted: torch.Tensor  # accepted steps
+    success: torch.Tensor  # reached ts[-1] within the budget, all outputs finite
+
+
+class _Tableau(NamedTuple):
+    """DOPRI5 coefficients rounded to the state's dtype, as JAX casts them."""
+
+    A: list
+    C: list
+    B: torch.Tensor
+    E: torch.Tensor
+    D: torch.Tensor
+
+    @classmethod
+    def make(cls, dtype, device):
+        def vec(a):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+        return cls(A=torch.as_tensor(tableaus.DOPRI5_A, dtype=dtype).tolist(),
+                   C=torch.as_tensor(tableaus.DOPRI5_C, dtype=dtype).tolist(),
+                   B=vec(tableaus.DOPRI5_B), E=vec(tableaus.DOPRI5_E), D=vec(tableaus.DOPRI5_D))
+
+
+def _rms_norm(x, per_row: bool):
+    if per_row:
+        return torch.sqrt(torch.mean(torch.square(x), dim=-1, keepdim=True))
+    return torch.sqrt(torch.mean(torch.square(x)))
+
+
+def _initial_step(field: Field, t0, y0, f0, rtol, atol, args, per_row: bool):
+    """Hairer's automatic initial step size selection (HNW I.4, alg. 4.14)."""
+    scale = atol + torch.abs(y0) * rtol
+    d0 = _rms_norm(y0 / scale, per_row)
+    d1 = _rms_norm(f0 / scale, per_row)
+    h0 = torch.where(torch.minimum(d0, d1) < 1e-5, 1e-6, 0.01 * d0 / torch.clamp(d1, min=1e-30))
+
+    y1 = y0 + h0 * f0
+    f1 = field(t0 + h0, y1, args)
+    d2 = _rms_norm((f1 - f0) / scale, per_row) / h0
+
+    dmax = torch.maximum(d1, d2)
+    h1 = torch.where(dmax <= 1e-15, torch.clamp(h0 * 1e-3, min=1e-6), (0.01 / torch.clamp(dmax, min=1e-30)) ** 0.2)
+    return torch.minimum(100.0 * h0, h1)
+
+
+def _dopri5_step(field: Field, t, y, f0, h, args, tab: _Tableau):
+    """One trial step -> (y1, f1, err, k). FSAL: `f0` is stage 1, the returned `f1` stage 7."""
+    ks = [f0]
+    for i in range(1, 7):
+        acc = ks[0] * tab.A[i][0]
+        for j in range(1, i):
+            acc = acc + ks[j] * tab.A[i][j]
+        yi = y + h * acc
+        ks.append(field(t + tab.C[i] * h, yi, args))
+    k = torch.stack(ks)  # (7, *y.shape)
+    y1 = y + h * torch.tensordot(tab.B, k, dims=1)
+    err = h * torch.tensordot(tab.E, k, dims=1)
+    return y1, ks[6], err, k
+
+
+def _noise_floor(dtype, rtol):
+    """(10 eps, rtol + 10 eps) formed in numpy at the state's precision, as JAX forms them."""
+    floor = 10.0 * np.finfo(torch.empty((), dtype=dtype).numpy().dtype).eps
+    return float(floor), float(rtol + floor)
+
+
+def _error_norm(err, y0, y1, atol, floors, h, k_mag, per_row: bool):
+    """Scaled RMS error with the float noise floor of hybridode/solvers/dopri5.py:115-135.
+
+    In float32 the embedded error estimate bottoms out at rounding noise, and
+    a controller asked for rtol=1e-7 chases that noise and collapses the step
+    size. Two terms widen the scale: ~10 eps relative on the state, and ~10
+    eps * h * max|k| for the rounding of the cancelling stage sum.
+    """
+    floor, rtol_floor = floors
+    scale = atol + rtol_floor * torch.maximum(torch.abs(y0), torch.abs(y1)) + floor * h * k_mag
+    return _rms_norm(err / scale, per_row)
+
+
+def _dense_coeffs(y0, y1, h, k, tab: _Tableau):
+    """Continuous-extension coefficients of one step (Hairer's DOPRI5)."""
+    dy = y1 - y0
+    bspl = h * k[0] - dy
+    return y0, dy, bspl, dy - h * k[6] - bspl, h * torch.tensordot(tab.D, k, dims=1)
+
+
+def _dense_eval(coeffs, theta):
+    """The dense polynomial at `theta` in [0, 1]; theta broadcasts to (T, *y.shape)."""
+    r1, r2, r3, r4, r5 = coeffs
+    th1 = 1.0 - theta
+    return r1 + theta * (r2 + th1 * (r3 + theta * (r4 + th1 * r5)))
+
+
+def _next_h(h, norm, accept):
+    factor = torch.where(norm == 0.0, _MAX_FACTOR,
+                         torch.clamp(_SAFETY * norm**_ERROR_EXPONENT, _MIN_FACTOR, _MAX_FACTOR))
+    # On rejection never allow growth.
+    factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
+    return h * factor
+
+
+def odeint_dopri5(
+    field: Field,
+    y0: torch.Tensor,
+    ts,
+    args: Any = None,
+    *,
+    rtol: float = 1e-7,
+    atol: float = 1e-8,
+    max_steps: int = 256,
+    barriers=None,
+    per_row: bool = False,
+):
+    """Integrate `dy/dt = field(t, y, args)`; return `(ys, stats)`.
+
+    `ys` has shape `(len(ts), *y0.shape)` with `ys[0] == y0`; grid points never
+    reached within the budget are NaN, and `stats.success` is False there.
+    `barriers`: optional sorted times that steps may not cross (they may start
+    on one), for forcing with jumps at known times. With `per_row=True` every
+    row of `y0` (all axes but the last) is its own solve.
+    """
+    dtype, device = y0.dtype, y0.device
+    tab = _Tableau.make(dtype, device)
+    floors = _noise_floor(dtype, rtol)
+    ts = torch.as_tensor(ts, dtype=dtype, device=device)
+    t_final = ts[-1]
+    ts_b = ts.reshape((-1,) + (1,) * y0.ndim)
+    row_shape = tuple(y0.shape[:-1]) + (1,) if per_row else ()
+    if barriers is not None:
+        barriers = torch.as_tensor(barriers, dtype=dtype, device=device)
+
+    t = ts[0].expand(row_shape)
+    f = field(t, y0, args)
+    with torch.no_grad():
+        h = _initial_step(field, t, y0, f.detach(), rtol, atol, args, per_row)
+
+    out = torch.cat([y0[None], torch.full((ts.shape[0] - 1,) + tuple(y0.shape), float("nan"), dtype=dtype,
+                                          device=device)])
+    y = y0
+    n_trial = torch.zeros(row_shape, dtype=torch.int32, device=device)
+    n_acc = torch.zeros(row_shape, dtype=torch.int32, device=device)
+    finished = torch.zeros(row_shape, dtype=torch.bool, device=device)
+
+    def trial_step(t, y, f, h, out, n_trial, n_acc, finished):
+        if barriers is not None:
+            # The next barrier strictly ahead of t (a margin so that a step
+            # starting on a barrier is not clipped to zero).
+            ahead = barriers > t + 1e-6
+            next_barrier = torch.amin(torch.where(ahead, barriers, float("inf")), dim=-1, keepdim=per_row)
+            h = torch.minimum(h, torch.clamp(next_barrier - t, min=1e-6))
+
+        last_step = h >= t_final - t
+        h_eff = torch.where(last_step, t_final - t, h)
+        y1, f1, err, k = _dopri5_step(field, t, y, f, h_eff, args, tab)
+        with torch.no_grad():
+            k_mag = torch.maximum(torch.abs(k[0]), torch.abs(k[6]))
+            norm = _error_norm(err, y, y1, atol, floors, h_eff, k_mag, per_row)
+            accept = (norm <= 1.0) & torch.isfinite(norm)
+            t_new = torch.where(last_step, t_final, t + h_eff)
+            # Every grid point this step crosses, from the dense polynomial.
+            theta = torch.clamp((ts_b - t) / torch.clamp(h_eff, min=1e-30), 0.0, 1.0)
+            do_fill = (ts_b > t) & (ts_b <= t_new) & accept & ~finished
+            h_next = _next_h(h_eff, norm, accept)
+        out = torch.where(do_fill, _dense_eval(_dense_coeffs(y, y1, h_eff, k, tab), theta), out)
+
+        alive = ~finished
+        take = accept & alive
+        return (
+            torch.where(take, t_new, t),
+            torch.where(take, y1, y),
+            torch.where(take, f1, f),
+            torch.where(alive, h_next, h),
+            out,
+            n_trial + alive.to(torch.int32),
+            n_acc + take.to(torch.int32),
+            finished | (take & last_step),
+        )
+
+    carry = (t, y, f, h, out, n_trial, n_acc, finished)
+    for _ in range(max(1, -(-max_steps // _CHUNK_SIZE))):
+        if bool(carry[-1].all()):  # the one host sync of a chunk
+            break
+        for _ in range(_CHUNK_SIZE):
+            carry = trial_step(*carry)
+    _, _, _, _, out, n_trial, n_acc, finished = carry
+
+    finite = torch.isfinite(out)
+    if per_row:
+        n_trial, n_acc, finished = n_trial[..., 0], n_acc[..., 0], finished[..., 0]
+        finite = finite.all(dim=-1).all(dim=0)
+    else:
+        finite = finite.all()
+    return out, Dopri5Stats(n_steps=n_trial, n_accepted=n_acc, success=finished & finite)

@@ -17,7 +17,7 @@ from hybridode.fields import roche_field as j_roche_field
 from hybridode.solvers import odeint_fixed as j_odeint_fixed
 from hybridode_torch.convert import params_from_jax
 from hybridode_torch.fields import DoseContext, roche_field
-from hybridode_torch.solvers import odeint, odeint_fixed
+from hybridode_torch.solvers import odeint, odeint_dopri5, odeint_fixed
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -50,8 +50,14 @@ def test_odeint_fixed_matches_jax(method, n_substeps, step_size):
 
 
 def test_dopri5_is_not_ported_and_does_not_fall_back():
-    with pytest.raises(NotImplementedError, match="DOPRI5"):
-        odeint(lambda t, y, args: -y, torch.ones(2, 3), torch.arange(3.0), method="dopri5")
+    """The name predates the DOPRI5 port: `odeint(method="dopri5")` now routes to the
+    adaptive lockstep solver and never falls back to a fixed-step method."""
+    y0, ts = torch.ones(2, 3), torch.arange(3.0)
+    got = odeint(lambda t, y, args: -y, y0, ts, method="dopri5")
+    want, stats = odeint_dopri5(lambda t, y, args: -y, y0, ts)
+    assert bool(stats.success) and int(stats.n_accepted) > len(ts)  # adaptive steps, not one per interval
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_allclose(got[:, 0, 0].numpy(), np.exp(-ts.numpy()), rtol=1e-5)
 
 
 def test_unknown_method_raises():
