@@ -35,6 +35,24 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    launches and the share of its wall time the GPU was busy. No kernel of the
    port is on this path (the RK4 kernel is forward-only): its launches there
    must stay 0.
+6. Real: the real-data track on data_real/ (read only) at the full width of
+   the ICU cohort's model (obs 28, 1 dose channel, 11 statics, encoder LSTM
+   hidden 49, latent 20, field hidden 48, explicit Adams over 73 hourly
+   intervals). The port's `run_real.run` (the CLI's entry point) for
+   `--method hybrid`: batch 100, val 100, test 1,000, REAL_ITERS iterations
+   with validation every REAL_TEST_FREQ, then the test fold's forecast, once
+   on the GPU and once on the CPU from the same seed, at the CLI's one step
+   an hour (`cli`: GPU values must be finite where the CPU's are) and at
+   REAL_HELD_STEP_DIV steps (`held`: curves and RMSEs within REAL_RTOL).
+   Each gives seconds per iteration (median) and `predict_test` seconds on
+   both devices, the four horizon RMSEs on both, the largest relative
+   differences of the curves and of the RMSEs, and one training iteration's
+   ATen calls, CUDA kernels and busy share under torch.profiler; the RK4
+   kernel's launches in the phase must be 0 (no kernel is on this path).
+   Then the five other methods on the GPU (REAL_OTHER_ITERS iterations each,
+   finite losses and RMSEs), and the ensemble and residual CLIs from their
+   expert and gruode checkpoints on the GPU and the CPU (RMSEs within
+   REAL_RTOL; both non-finite counts as agreement, one alone as a failure).
 
 The last lines are the `kernels` JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -72,6 +90,16 @@ EVAL_REPEATS = 5  # further timed GPU evaluations after the counted one
 # agreement its GPU and CPU runs must keep (curves and metrics: float32 solves whose step sequences may differ).
 TRAIN_ITERS, TRAIN_TEST_FREQ, TRAIN_BATCH = 6, 2, 50
 TRAIN_RTOL = 1e-3
+# Phase 6: the real track on data_real/ (full width), and the GPU-vs-CPU agreement of its curves and horizon RMSEs
+# (the masked MSE draws no noise, so both devices see the same batches and inputs). The hybrid's agreement is held
+# at two explicit-Adams steps an hour: at the CLI's one step an hour its GRU remainder's decay rate lies outside
+# AB4's stability interval and the randomly initialised solve amplifies rounding (float32 against float64 on one
+# CPU: beyond 1e-2 on the loss, tests/test_torch_real_models.py), so no two devices can agree there.
+REAL_DATA = "data_real/"
+REAL_ITERS, REAL_TEST_FREQ, REAL_OTHER_ITERS = 10, 5, 2
+REAL_HELD_STEP_DIV = 2
+REAL_RTOL = 1e-3
+REAL_OTHER_METHODS = ("neural", "2nd", "expert", "tlstm", "gruode")
 KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None), (1000, 8, None), (7, 6, None),
                 (2550, 6, 1.7)]
 
@@ -394,6 +422,123 @@ def phase_train(args):
     return line
 
 
+def _real_run(device, seed, model_dir, method="hybrid", niters=REAL_ITERS, test_freq=REAL_TEST_FREQ, ode_step_div=1):
+    """The real CLI's run on `device`; -> its curve, step seconds, predict_test seconds, horizon RMSEs, params, model."""
+    import numpy as np
+
+    from hybridode_torch.cli import run_real
+
+    os.makedirs(model_dir, exist_ok=True)
+    curve_path, events_path = (os.path.join(model_dir, f"{method}.{ext}") for ext in ("csv", "jsonl"))
+    np.random.seed(seed)  # the bootstrap sd column
+    t = time.perf_counter()
+    params, model, report = run_real.run(
+        seed=seed, method=method, niters=niters, ode_step_div=ode_step_div, data_path=REAL_DATA, batch_size=100,
+        val_size=100, test_size=1000, encoder_output_dim=4 if method == "expert" else 20, model_dir=model_dir + "/",
+        curve_path=curve_path, device=device, test_freq=test_freq, events_path=events_path)
+    seconds = time.perf_counter() - t
+    with open(curve_path) as f:
+        curve = [[float(x) for x in ln.split(",")] for ln in f if ln.strip()]
+    with open(events_path) as f:
+        events = [json.loads(ln) for ln in f]
+    return dict(curve=curve, step_s=[e["seconds"] for e in events if e["event"] == "step"],
+                predict_s=next(e["seconds"] for e in events if e["event"] == "predict_test"),
+                rmse=[r[1] for r in report], seconds=seconds), params, model
+
+
+def _real_pair(seed, tmp, ode_step_div):
+    """The hybrid real run on the GPU, then on the CPU, and their profile: one iteration on iteration 1's batch."""
+    import torch
+
+    from hybridode_torch.data import RealCohort
+
+    gpu, params, model = _real_run("cuda", seed, os.path.join(tmp, f"gpu{ode_step_div}"), ode_step_div=ode_step_div)
+    torch.cuda.synchronize()
+    cpu, _, _ = _real_run("cpu", seed, os.path.join(tmp, f"cpu{ode_step_div}"), ode_step_div=ode_step_div)
+    cohort = RealCohort(REAL_DATA, device="cuda")
+    cohort.split_sample()
+    first = cohort.get_split("train", 100, 1 % max(1, cohort.train_size // 100))
+    gpu_losses = [v for row in gpu["curve"] for v in row[1:]]
+    cpu_losses = [v for row in cpu["curve"] for v in row[1:]]
+    return dict(
+        ode_step_div=ode_step_div,
+        iter_s_gpu=statistics.median(gpu["step_s"]), iter_s_cpu=statistics.median(cpu["step_s"]),
+        iter_s_gpu_all=gpu["step_s"], iter_s_cpu_all=cpu["step_s"],
+        predict_test_s_gpu=gpu["predict_s"], predict_test_s_cpu=cpu["predict_s"],
+        run_s_gpu=gpu["seconds"], run_s_cpu=cpu["seconds"],
+        rmse_gpu=gpu["rmse"], rmse_cpu=cpu["rmse"],
+        rmse_max_rel_diff=max(_rel_diff(a, b) for a, b in zip(gpu["rmse"], cpu["rmse"])),
+        curve_gpu=gpu["curve"], curve_cpu=cpu["curve"],
+        curve_max_rel_diff=max((_rel_diff(a, b) for a, b in zip(gpu_losses, cpu_losses)), default=math.inf),
+        profile=_profile_step(params, model, first, seed),
+    ), gpu_losses, cpu_losses
+
+
+def _blend_run(cli, device, seed, init_path, model_dir):
+    import numpy as np
+
+    np.random.seed(seed)
+    t = time.perf_counter()
+    kw = dict(niters=REAL_OTHER_ITERS, model_dir=model_dir + "/") if cli.__name__.endswith("residual") else {}
+    report = cli.run(seed=seed, init_path=init_path + "/", data_path=REAL_DATA, device=device, **kw)
+    return dict(rmse=[r[1] for r in report], seconds=time.perf_counter() - t)
+
+
+def phase_real(args):
+    import torch
+
+    from hybridode_torch.cli import run_real_ensemble, run_real_residual
+    from hybridode_torch.ops import roche_rk4
+
+    finite = lambda v: v == v and abs(v) != math.inf  # noqa: E731
+    t0 = time.perf_counter()
+    roche_rk4.roche_rk4_trajectory.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, cli_gpu_losses, cli_cpu_losses = _real_pair(args.seed, tmp, 1)
+        held, _, _ = _real_pair(args.seed, tmp, REAL_HELD_STEP_DIV)
+
+        models = os.path.join(tmp, "models")
+        others = {}
+        for method in REAL_OTHER_METHODS:
+            run, _, _ = _real_run("cuda", args.seed, models, method=method, niters=REAL_OTHER_ITERS,
+                                  test_freq=REAL_OTHER_ITERS)
+            losses = [v for row in run["curve"] for v in row[1:]]
+            others[method] = dict(seconds=run["seconds"], iter_s=run["step_s"], losses=losses, rmse=run["rmse"],
+                                  finite=bool(losses) and all(map(finite, losses + run["rmse"])))
+        blends = {}
+        for blend in (run_real_ensemble, run_real_residual):
+            name = blend.__name__.rsplit("_", 1)[1]
+            runs = {d: _blend_run(blend, d, args.seed, models, os.path.join(tmp, f"res_{d}")) for d in ("cuda", "cpu")}
+            runs["max_rel_diff"] = max(_rel_diff(a, b) for a, b in zip(runs["cuda"]["rmse"], runs["cpu"]["rmse"]))
+            blends[name] = runs
+    torch.cuda.synchronize()
+    rk4_launches = roche_rk4.roche_rk4_trajectory.launches
+
+    line = dict(seconds=time.perf_counter() - t0, cli=cli, held=held, roche_rk4_launches=rk4_launches,
+                methods=others, **blends)
+    print("real " + json.dumps(line), flush=True)
+
+    for a, b in zip(cli_gpu_losses + cli["rmse_gpu"], cli_cpu_losses + cli["rmse_cpu"]):
+        if finite(b) and not finite(a):
+            raise SystemExit(f"a GPU loss or RMSE of the hybrid is non-finite ({a}) where the CPU's is {b}")
+    for run in (cli, held):
+        if len(run["curve_gpu"]) != REAL_ITERS // REAL_TEST_FREQ or len(run["curve_gpu"]) != len(run["curve_cpu"]):
+            raise SystemExit(f"curves of {len(run['curve_gpu'])} (GPU) and {len(run['curve_cpu'])} (CPU) "
+                             f"validations, expected {REAL_ITERS // REAL_TEST_FREQ}")
+    if held["curve_max_rel_diff"] > REAL_RTOL or held["rmse_max_rel_diff"] > REAL_RTOL:
+        raise SystemExit(f"hybrid at ode_step_div={REAL_HELD_STEP_DIV}, GPU vs CPU beyond rtol={REAL_RTOL}: curve "
+                         f"{held['curve_max_rel_diff']}, RMSEs {held['rmse_max_rel_diff']}")
+    bad = [m for m, r in others.items() if not r["finite"]]
+    if bad:
+        raise SystemExit(f"non-finite losses or RMSEs on the GPU for {bad}")
+    for name, runs in blends.items():
+        if runs["max_rel_diff"] > REAL_RTOL:
+            raise SystemExit(f"{name}: GPU {runs['cuda']['rmse']} vs CPU {runs['cpu']['rmse']} beyond rtol={REAL_RTOL}")
+    if rk4_launches:
+        raise SystemExit(f"the RK4 kernel was launched {rk4_launches} times on the real track")
+    return line
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ckpt", default=None, help="checkpoint path prefix written by either package")
@@ -428,6 +573,7 @@ def main(argv=None) -> int:
     rows = phase_kernels(cohort, args.seed)
     launches = phase_slice(cohort, args)
     phase_train(args)
+    phase_real(args)
 
     main_row = rows[0]  # B=2550: the one launch of each chunk of evaluate
     print(json.dumps({"kernels": [dict(

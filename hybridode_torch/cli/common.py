@@ -1,4 +1,5 @@
-"""Shared CLI plumbing (counterpart of `resolve_data_config` and `build_sim_model`, hybridode/cli/common.py:30-112).
+"""Shared CLI plumbing (counterpart of `resolve_data_config`, `build_sim_model` and `build_real_model`,
+hybridode/cli/common.py:30-160).
 
 Same signatures and the same spec values as the JAX package. The flow
 posterior is not ported yet.
@@ -8,8 +9,8 @@ from __future__ import annotations
 
 from ..config import DataConfig, dim8_config, dim12_config
 from ..inference.elbo import VIModel
-from ..models.decoders import SimDecoderSpec
-from ..models.encoders import EncoderLSTMSpec
+from ..models.decoders import RealBenchmarkSpec, RealDecoderSpec, SimDecoderSpec
+from ..models.encoders import EncoderLSTMRealSpec, EncoderLSTMSpec
 
 
 def resolve_data_config(name: str | None, sample: int) -> DataConfig:
@@ -77,3 +78,32 @@ def build_sim_model(
         max_record=1024 if (roche and lockstep) else None,
     )
     return VIModel(kind="sim", encoder_spec=enc, decoder_spec=dec, elbo=elbo, prior=prior, mc_size=mc_size)
+
+
+def build_real_model(
+    method: str,
+    obs_dim: int,
+    action_dim: int,
+    static_dim: int,
+    t_max: int,
+    step_size: float,
+    encoder_output_dim: int = 20,
+    encoder_latent_ratio: float = 1.2,
+    ode_method: str = "explicit_adams",
+    ode_step_div: int = 1,
+    t0: int = 24,
+    weight: bool = False,
+) -> VIModel:
+    """neural / hybrid / expert / 2nd (ODE decoders) or tlstm / gruode (discrete) -> VIModel with the masked MSE."""
+    input_dim = obs_dim + action_dim + static_dim + 1
+    enc = EncoderLSTMRealSpec(input_dim, int(input_dim * encoder_latent_ratio), encoder_output_dim, reverse=False)
+
+    hidden_dim = int((obs_dim + action_dim + static_dim) * encoder_latent_ratio)
+    if method in ("hybrid", "neural", "2nd", "expert"):
+        dec = RealDecoderSpec(obs_dim, encoder_output_dim, action_dim, static_dim, hidden_dim, t_max=t_max,
+                              step_size=step_size, t0=t0, method=ode_method, ode_step_size=step_size / ode_step_div,
+                              ode_type=method)
+    else:
+        dec = RealBenchmarkSpec(obs_dim, encoder_output_dim, action_dim, static_dim, hidden_dim, t_max=t_max,
+                                step_size=step_size, t0=t0, ode_type=method)
+    return VIModel(kind="real", encoder_spec=enc, decoder_spec=dec, elbo=False, t0=t0, weight=weight)

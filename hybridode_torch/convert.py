@@ -4,7 +4,9 @@ A JAX parameter tree (nested dicts and lists of arrays, as `init_vi` or
 `load_checkpoint` give it) maps onto the port name for name: both packages
 keep linear weights `(in, out)` and LSTM gates i, f, g, o, so no array is
 transposed or reordered. The 13 expert constants and the ablation thetas come
-out with `requires_grad=False`, as the JAX optimizer mask freezes them.
+out with `requires_grad=False`, as the JAX optimizer mask freezes them; the
+real track's trees have no such key, and every leaf, the 0-d rate constants
+too, trains.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 from .checkpoint import load_checkpoint, save_checkpoint
-from .elbo import PRIORS, VIModel, decode, encode, forecast_loss, init_vi, loss_fn, mc_kl, sim_loss
+from .elbo import PRIORS, VIModel, decode, encode, forecast_loss, init_vi, loss_fn, mc_kl, real_loss, sim_loss
 from .train import make_eval_loss, make_optimizer, train_step, variational_training_loop
 
 __all__ = [
@@ -10,6 +10,7 @@ __all__ = [
     "init_vi",
     "loss_fn",
     "sim_loss",
+    "real_loss",
     "mc_kl",
     "forecast_loss",
     "load_checkpoint",

@@ -1,15 +1,17 @@
-"""The variational model and its losses, for the simulation track (`kind="sim"`).
+"""The variational model and its losses, for the simulation (`kind="sim"`) and real-data (`kind="real"`) tracks.
 
 Counterpart of `VIModel`, `init_vi`, `encode`, `decode`, `sim_loss`,
-`mc_kl`, `forecast_loss_terms`, `forecast_loss` and `loss_fn` in
-hybridode/inference/elbo.py:29-249.
+`real_loss`, `mc_kl`, `forecast_loss_terms`, `forecast_loss` and `loss_fn` in
+hybridode/inference/elbo.py:29-249. The flow posterior (`kind="flow"`) is
+not ported yet.
 
 JAX draws the ELBO's noise from PRNG keys inside the loss. A key stream
-cannot be replayed here, so the noise is explicit: `sim_loss` takes the
+cannot be replayed here, so the noise is explicit: the losses take the
 draws themselves (`eps` of shape (B, D) for the reparameterisation, `eps_kl`
 of shape (mc, B, D) for the Monte-Carlo KL) or a CPU `torch.Generator` to
 draw them from. Draws are made on the CPU and then moved, so a CPU run and a
-GPU run from one seed see the same noise.
+GPU run from one seed see the same noise. The real track's CLIs train the
+masked MSE (`elbo=False`), which draws nothing.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ PRIORS = {
 class VIModel(NamedTuple):
     """Static description of an encoder/decoder pair + loss settings."""
 
-    kind: str  # "sim" is ported
+    kind: str  # "sim" | "real" | "flow" (not ported)
     encoder_spec: NamedTuple
     decoder_spec: NamedTuple
     elbo: bool = True
@@ -48,28 +50,44 @@ class VIModel(NamedTuple):
         return f"{tag}_{self.encoder_spec.model_name}_{self.decoder_spec.model_name}.pkl"
 
 
-def _require_sim(model: VIModel):
-    if model.kind != "sim":
-        raise NotImplementedError(f"VIModel kind {model.kind!r} is not ported yet (ROADMAP.md, queue 1)")
+def _refuse_flow(model: VIModel):
+    if model.kind == "flow":
+        raise NotImplementedError("the flow posterior (VIModel kind 'flow') is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 6)")
 
 
 def init_vi(generator: torch.Generator, model: VIModel, device=None) -> nn.ParamTree:
     """Random parameters {"encoder", "decoder"} drawn from a CPU generator, placed on `device`."""
-    _require_sim(model)
+    _refuse_flow(model)
     device = resolve_device(device)
-    return nn.ParamTree({
-        "encoder": encoders.init_encoder_lstm(generator, model.encoder_spec, device=device),
-        "decoder": decoders.init_sim_decoder(generator, model.decoder_spec, device=device),
-    })
+    if model.kind == "real":
+        enc = encoders.init_encoder_lstm_real(generator, model.encoder_spec, device=device)
+    else:
+        enc = encoders.init_encoder_lstm(generator, model.encoder_spec, device=device)
+    spec = model.decoder_spec
+    if isinstance(spec, decoders.RealDecoderSpec):
+        dec = decoders.init_real_decoder(generator, spec, device=device)
+    elif isinstance(spec, decoders.RealBenchmarkSpec):
+        dec = decoders.init_real_benchmark(generator, spec, device=device)
+    else:
+        dec = decoders.init_sim_decoder(generator, spec, device=device)
+    return nn.ParamTree({"encoder": enc, "decoder": dec})
 
 
 def decode(params, model: VIModel, z, batch):
-    _require_sim(model)
-    return decoders.sim_decoder_apply(params["decoder"], model.decoder_spec, z, batch["actions"])
+    _refuse_flow(model)
+    spec = model.decoder_spec
+    if isinstance(spec, decoders.RealDecoderSpec):
+        return decoders.real_decoder_apply(params["decoder"], spec, z, batch["actions"], batch["statics"])
+    if isinstance(spec, decoders.RealBenchmarkSpec):
+        return decoders.real_benchmark_apply(params["decoder"], spec, z, batch["actions"], batch["statics"])
+    return decoders.sim_decoder_apply(params["decoder"], spec, z, batch["actions"])
 
 
 def encode(params, model: VIModel, x, a, mask):
-    _require_sim(model)
+    _refuse_flow(model)
+    if model.kind == "real":
+        return encoders.encoder_lstm_real_apply(params["encoder"], model.encoder_spec, x, a, mask)
     return encoders.encoder_lstm_apply(params["encoder"], model.encoder_spec, x, a, mask)
 
 
@@ -119,19 +137,57 @@ def sim_loss(params, model: VIModel, batch, generator: Optional[torch.Generator]
     lik = torch.sum((x - x_hat) ** 2 * mask) / x.shape[1]
     if not model.elbo:
         return lik
+    return lik + _kl(model, mu, log_var, eps_kl)
+
+
+def _kl(model: VIModel, mu, log_var, eps_kl):
     if model.prior is None:
-        kld = _analytic_gaussian_kl(mu, log_var)
-    else:
-        kld = torch.mean(mc_kl(eps_kl, mu, log_var, PRIORS[model.prior]))
-    return lik + kld
+        return _analytic_gaussian_kl(mu, log_var)
+    return torch.mean(mc_kl(eps_kl, mu, log_var, PRIORS[model.prior]))
+
+
+def real_loss(params, model: VIModel, batch, generator: Optional[torch.Generator] = None, *, eps=None,
+              eps_kl=None):
+    """t0-conditioned loss of the real track: encode [0, t0) of [x, a, statics], decode, masked MSE on x[t0:].
+
+    With `model.weight` step k past t0 weighs 1/k. With `model.elbo` the KL is
+    added, its noise `eps` / `eps_kl` given or drawn from `generator`; a
+    per-step posterior (rank-3 `log_var`) takes the analytic KL.
+    """
+    x, a, mask, s = batch["measurements"], batch["actions"], batch["masks"], batch["statics"]
+    t0 = model.t0
+    if model.elbo and eps is None:
+        eps, eps_kl = draw_noise(model, x.shape[1], generator, x.device)
+
+    a_in = torch.cat([a, s], dim=-1)
+    mu, log_var = encode(params, model, x[:t0], a_in[:t0], mask[:t0])
+    z = priors.gaussian_reparameterize(mu, log_var, eps) if model.elbo else mu
+    x_hat, _ = decode(params, model, z, batch)
+
+    err = (x[t0:] - x_hat) ** 2 * mask[t0:]
+    if model.weight:
+        t_len = model.decoder_spec.t_max - t0
+        err = err * (1.0 / torch.arange(1, t_len + 1, dtype=x.dtype, device=x.device))[:, None, None]
+    lik = torch.sum(err) / x.shape[1]
+    if not model.elbo:
+        return lik
+    if log_var.ndim == 2:
+        return lik + _kl(model, mu, log_var, eps_kl)
+    return lik + _analytic_gaussian_kl(mu, log_var)
 
 
 def forecast_loss_terms(params, model: VIModel, batch, t0: int):
-    """(masked squared-error sum, mask count) behind forecast_loss."""
+    """(masked squared-error sum, mask count) behind forecast_loss.
+
+    The real track encodes [x, a, statics]; its decoders already emit x[t0:].
+    """
     x, a, mask = batch["measurements"], batch["actions"], batch["masks"]
+    if model.kind == "real":
+        a = torch.cat([a, batch["statics"]], dim=-1)
     z, _ = encode(params, model, x[:t0], a[:t0], mask[:t0])
     x_hat, _ = decode(params, model, z, batch)
-    num = torch.sum((x[t0:] - x_hat[t0:]) ** 2 * mask[t0:])
+    pred = x_hat[: x.shape[0] - t0] if model.kind == "real" else x_hat[t0:]
+    num = torch.sum((x[t0:] - pred) ** 2 * mask[t0:])
     den = torch.sum(mask[t0:])
     return num, den
 
@@ -146,5 +202,7 @@ def forecast_loss(params, model: VIModel, batch, t0: int):
 
 
 def loss_fn(params, model: VIModel, batch, generator: Optional[torch.Generator] = None, **noise):
-    """The training loss of `model`: the ELBO of the simulation track (the only kind ported)."""
+    """The training loss of `model`: `sim_loss` or `real_loss` by its kind."""
+    if model.kind == "real":
+        return real_loss(params, model, batch, generator, **noise)
     return sim_loss(params, model, batch, generator, **noise)

@@ -1,8 +1,17 @@
-"""Simulation decoder: initial latent -> ODE solve -> observation head.
+"""Decoders: initial latent -> ODE solve (or discrete unroll) -> observation head.
 
-Counterpart of `SimDecoderSpec`, `init_sim_decoder` and `sim_decoder_apply`
-(hybridode/models/decoders.py:44-170), for the Roche field (`roche=True`)
-and the black-box neural field (`roche=False`).
+Counterpart of hybridode/models/decoders.py:44-363:
+
+* the simulation decoder (`SimDecoderSpec`, `init_sim_decoder`,
+  `sim_decoder_apply`) for the Roche field (`roche=True`) and the black-box
+  neural field (`roche=False`);
+* the real-data ODE decoder (`RealDecoderSpec`, `init_real_decoder`,
+  `real_decoder_apply`), solved by `odeint` in plain PyTorch (explicit Adams
+  on a fixed grid by default), no kernel;
+* the real-data discrete benchmarks `tlstm` and `gruode` (`RealBenchmarkSpec`,
+  `init_real_benchmark`, `gru_ode_cell`, `real_benchmark_apply`).
+
+The simulation decoder has three solves:
 
 Three solves:
 
@@ -29,9 +38,22 @@ import torch
 
 from .. import resolve_device
 from ..config import DTYPE, RocheConfig
-from ..fields import doses_from_actions, init_neural_field, init_roche_field, neural_field, roche_field
+from ..fields import (
+    CumDoseContext,
+    doses_from_actions,
+    init_neural_field,
+    init_neural_real_2nd_field,
+    init_neural_real_field,
+    init_roche_field,
+    init_roche_real_field,
+    neural_field,
+    neural_real_2nd_field,
+    neural_real_field,
+    roche_field,
+    roche_real_field,
+)
 from ..ops.roche_rk4 import MAX_DIM, roche_rk4_trajectory
-from ..solvers import odeint, odeint_dopri5
+from ..solvers import FIXED_METHODS, odeint, odeint_dopri5
 from . import nn
 
 
@@ -112,3 +134,164 @@ def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
                    step_size=spec.ode_step_size, n_substeps=spec.n_substeps, max_steps=spec.max_steps)
     x_hat = nn.linear(params["output"], h)
     return x_hat, h
+
+
+# --- Real-data decoder ----------------------------------------------------------
+
+_REAL_FIELDS = {
+    "neural": neural_real_field,
+    "2nd": neural_real_2nd_field,
+    "hybrid": roche_real_field,
+    "expert": roche_real_field,
+}
+
+
+class RealDecoderSpec(NamedTuple):
+    obs_dim: int
+    latent_dim: int
+    action_dim: int
+    static_dim: int
+    hidden_dim: int
+    t_max: int
+    step_size: float
+    t0: int = 0
+    method: str = "explicit_adams"
+    ode_step_size: Optional[float] = None
+    ode_type: str = "neural"
+    rtol: float = 1e-7
+    atol: float = 1e-8
+    max_steps: int = 512
+
+    @property
+    def model_name(self) -> str:
+        return "DecoderReal_" + self.ode_type
+
+    @property
+    def ts(self) -> np.ndarray:
+        # Grid arange(t0-1, t_max, step).
+        return np.arange(self.t0 - 1, self.t_max, self.step_size, dtype=np.float32)
+
+    @property
+    def n_substeps(self) -> int:
+        if self.ode_step_size is None:
+            return 1
+        return max(1, int(round(self.step_size / self.ode_step_size)))
+
+
+def init_real_decoder(generator, spec: RealDecoderSpec, dtype=DTYPE, device=None) -> nn.ParamTree:
+    device = resolve_device(device)
+    if spec.ode_type in ("hybrid", "expert"):
+        ode = init_roche_real_field(generator, spec.latent_dim, spec.hidden_dim, dtype=dtype, device=device)
+    elif spec.ode_type == "2nd":
+        ode = init_neural_real_2nd_field(generator, spec.latent_dim, spec.action_dim, spec.hidden_dim, dtype=dtype,
+                                         device=device)
+    else:
+        ode = init_neural_real_field(generator, spec.latent_dim, spec.action_dim, spec.hidden_dim, dtype=dtype,
+                                     device=device)
+    out = nn.mlp_init(generator, [spec.latent_dim, spec.latent_dim + 1, spec.obs_dim], dtype=dtype)
+    return nn.ParamTree({"ode": ode, "output": out}).to(device)
+
+
+def _real_output(params, h):
+    return nn.mlp(params["output"], h, activation=nn.elu)
+
+
+def real_decoder_apply(params, spec: RealDecoderSpec, init, actions, statics):
+    """(B, D) or (T', B, D) initial latents + (T, B, A) actions -> (x_hat, h).
+
+    Rank-2 `init`: one solve over the grid `spec.ts`; x_hat drops the grid's
+    first point. Rank-3 `init`: one 2-point solve per interval [ts[i],
+    ts[i+1]] from init[i], all intervals in one batched fixed-step solve (the
+    counterpart of JAX's vmap), with a zero row prepended and x_hat[0] = 0.
+    """
+    ctx = CumDoseContext(actions=actions)
+    field = _REAL_FIELDS[spec.ode_type]
+    ts = torch.as_tensor(spec.ts, device=init.device)
+    solve = dict(method=spec.method, step_size=spec.ode_step_size, n_substeps=spec.n_substeps, rtol=spec.rtol,
+                 atol=spec.atol, max_steps=spec.max_steps)
+
+    if init.ndim == 2:
+        h = odeint(field, init, ts, (params["ode"], ctx), **solve)
+        return _real_output(params, h)[1:], h
+
+    if spec.method not in FIXED_METHODS:
+        raise NotImplementedError(f"the per-interval (rank-3) decode runs fixed-step methods {FIXED_METHODS}, "
+                                  f"not {spec.method!r}")
+    n_intervals = spec.t_max - 1
+    ts_pairs = torch.stack([ts[:n_intervals], ts[1 : n_intervals + 1]])[..., None, None]  # (2, N, 1, 1)
+    h_tail = odeint(field, init[:n_intervals], ts_pairs, (params["ode"], ctx), **solve)[-1]  # (N, B, D)
+    h = torch.cat([torch.zeros_like(h_tail[:1]), h_tail], dim=0)
+    x_hat = _real_output(params, h)[1:]
+    x_hat = torch.cat([torch.zeros_like(x_hat[:1]), x_hat[1:]], dim=0)
+    return x_hat, h
+
+
+# --- Discrete-time benchmark decoders (tlstm / gruode) ---------------------------
+
+
+class RealBenchmarkSpec(NamedTuple):
+    obs_dim: int
+    latent_dim: int
+    action_dim: int
+    static_dim: int
+    hidden_dim: int
+    t_max: int
+    step_size: float
+    t0: int = 0
+    ode_type: str = "tlstm"
+
+    @property
+    def model_name(self) -> str:
+        return "DecoderReal_" + self.ode_type
+
+    @property
+    def ts(self) -> np.ndarray:
+        return np.arange(self.t0, self.t_max, self.step_size, dtype=np.float32)
+
+
+def init_real_benchmark(generator, spec: RealBenchmarkSpec, dtype=DTYPE, device=None) -> nn.ParamTree:
+    D = spec.latent_dim
+    tree = {"output": nn.mlp_init(generator, [D, D + 1, spec.obs_dim], dtype=dtype)}
+    if spec.ode_type == "tlstm":
+        tree["lstm"] = nn.lstm_init(generator, spec.action_dim * 2, D, dtype)
+    elif spec.ode_type == "gruode":
+        # Bias-free linears on [h, a, time].
+        tree["lin_hz"] = nn.linear_init(generator, D + 2, D + 2, bias=False, dtype=dtype)
+        tree["lin_hn"] = nn.linear_init(generator, D + 2, D, bias=False, dtype=dtype)
+    else:
+        raise ValueError(spec.ode_type)
+    return nn.ParamTree(tree).to(resolve_device(device))
+
+
+def gru_ode_cell(params, a, h):
+    """One GRU-ODE evaluation -> (dh, h).
+
+    The reference's quirk, kept on purpose: dh is the step's output while the
+    hidden state is threaded back unchanged, so the benchmark's trajectory is
+    the sequence of dh's.
+    """
+    hid = h.shape[-1]
+    ha = torch.cat([h, a], dim=-1)
+    z = torch.sigmoid(nn.linear(params["lin_hz"], ha))
+    n = torch.tanh(nn.linear(params["lin_hn"], z * ha))
+    dh = (1 - z[..., :hid]) * (n - h)
+    return dh, h
+
+
+def real_benchmark_apply(params, spec: RealBenchmarkSpec, init, actions, statics):
+    """Discrete unroll over the grid `spec.ts` (which starts at t0) -> (x_hat, hs)."""
+    ts = spec.ts
+    a_seq = actions[torch.as_tensor(ts.astype(np.int64), device=actions.device)]  # (T', B, A)
+    time_feat = torch.as_tensor(ts, dtype=actions.dtype, device=actions.device)[:, None, None] / spec.t_max
+    obs_seq = torch.cat([a_seq, time_feat.expand(a_seq.shape)], dim=-1)
+
+    if spec.ode_type == "tlstm":
+        state, outs = (init, init), []
+        for obs in obs_seq:
+            h_new, state = nn.lstm_cell(params["lstm"], obs, state)
+            outs.append(h_new)
+        hs = torch.stack(outs)
+    else:
+        # The state never changes, so every step's dh comes from `init`: one cell call over all steps.
+        hs, _ = gru_ode_cell(params, obs_seq, init.expand(obs_seq.shape[0], *init.shape))
+    return _real_output(params, hs), hs

@@ -140,3 +140,7 @@ def lstm_scan(p, xs, hidden_dim: int, reverse: bool = False, return_all: bool = 
     if return_all:
         return torch.stack(hs)  # (T, B, H)
     return hs[0] if reverse else hs[-1]
+
+
+def elu(x):
+    return torch.nn.functional.elu(x)

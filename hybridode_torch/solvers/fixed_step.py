@@ -66,6 +66,11 @@ def odeint_fixed(
     Each interval `[ts[i], ts[i+1]]` is covered by `n_substeps` equal steps
     (derived from `step_size` against the widest interval when not given),
     so grid points are hit exactly. Returns (len(ts), *y0.shape).
+
+    `ts` is a grid of shape (L,), or (L, N, 1, 1) for N independent solves
+    held as the leading slices of a (N, B, D) state, each on its own grid
+    (the counterpart of JAX's `vmap` of one solve per slice); the field then
+    gets a time of shape (N, 1, 1).
     """
     if method not in ("explicit_adams", *tableaus.FIXED_TABLEAUS):
         raise ValueError(f"unknown fixed-step method {method!r}")
@@ -75,7 +80,7 @@ def odeint_fixed(
     adams = method == "explicit_adams"
     tableau = tableaus.FIXED_TABLEAUS["rk4" if adams else method]
     ab = torch.as_tensor(tableaus.AB4_COEFFS, dtype=dtype, device=y0.device)
-    steps = torch.arange(n_sub, dtype=dtype, device=y0.device)
+    steps = torch.arange(n_sub, dtype=dtype, device=y0.device).reshape((n_sub,) + (1,) * (ts.ndim - 1))
 
     y = y0
     hist = y0.new_zeros((4,) + tuple(y0.shape))

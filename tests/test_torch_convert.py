@@ -92,7 +92,7 @@ def test_port_imports_no_jax_and_nothing_of_hybridode():
         c = SyntheticCohort.load("data_s123/datafile_dose_exp.pkl", device="cpu")
         assert c.test_size == 200
         leaked = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "hybridode") )
+                        if m.split(".")[0] in ("jax", "jaxlib", "hybridode", "pandas"))
         assert not leaked, leaked
         print(len(mods))
         """
