@@ -12,7 +12,8 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    decodes in one launch), at other batches and widths (a ragged B=7), and
    with non-integer Hill exponents (the kernel's powf path), with the
    tolerance stated below; the kernel's and the plain version's times (CUDA
-   events, median of 20 runs after warm-up: `ms`, `plain_ms`), the kernel's
+   events, medians after warm-up of 20 runs, `ms`, and of PLAIN_RUNS runs of
+   the ~0.35 s plain version, `plain_ms`), the kernel's
    device time with the host's launch cost hidden (`device_ms`: 100 calls
    queued behind a GPU spin), and the built kernel's registers and local
    (spill) bytes a thread.
@@ -30,11 +31,10 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    the same seed. The `train` line gives seconds per iteration (median) on
    both, the GPU `evaluate` seconds, the steps of the first training batch's
    per-patient decode, the largest relative differences between the two
-   curves and between the four metrics (each must stay within TRAIN_RTOL),
-   and, from one training iteration under torch.profiler, its CUDA kernel
-   launches and the share of its wall time the GPU was busy. No kernel of the
-   port is on this path (the RK4 kernel is forward-only): its launches there
-   must stay 0.
+   curves and between the four metrics (each must stay within TRAIN_RTOL).
+   No kernel of the port is on this path (the RK4 kernel is forward-only):
+   its launches there must stay 0. One training iteration is timed here and
+   profiled at the end (`profile` line).
 6. Real: the real-data track on data_real/ (read only) at the full width of
    the ICU cohort's model (obs 28, 1 dose channel, 11 statics, encoder LSTM
    hidden 49, latent 20, field hidden 48, explicit Adams over 73 hourly
@@ -46,15 +46,37 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    REAL_HELD_STEP_DIV steps (`held`: curves and RMSEs within REAL_RTOL).
    Each gives seconds per iteration (median) and `predict_test` seconds on
    both devices, the four horizon RMSEs on both, the largest relative
-   differences of the curves and of the RMSEs, and one training iteration's
-   ATen calls, CUDA kernels and busy share under torch.profiler; the RK4
-   kernel's launches in the phase must be 0 (no kernel is on this path).
+   differences of the curves and of the RMSEs (one training iteration of
+   each is profiled at the end); the RK4 kernel's launches in the phase must
+   be 0 (no kernel is on this path).
    Then the five other methods on the GPU (REAL_OTHER_ITERS iterations each,
    finite losses and RMSEs), and the ensemble and residual CLIs from their
    expert and gruode checkpoints on the GPU and the CPU (RMSEs within
    REAL_RTOL; both non-finite counts as agreement, one alone as a failure).
+7. Sim_more: the rest of the simulation study on data_s123 at the width of
+   phases 4-5, each on the GPU and on the CPU from the same seed, held within
+   SIM_MORE_RTOL. The flow CLI (`run_simulation_flow.run`, LHM-NF: 4 planar
+   flows, a 50-sample MC KL, per-patient DOPRI5), one restart of FLOW_ITERS
+   iterations at batch 50 with validation every FLOW_TEST_FREQ, then its
+   `evaluate`: curves and metrics, seconds per iteration (one iteration is
+   profiled at the end). Its GPU checkpoint evaluated at RK4 (ode_step_size=0.125)
+   through the kernel and through the plain version. Expert and neural
+   checkpoints from `run_simulation.run` (MEMBER_ITERS iterations, GPU), then
+   `run_simulation_ensemble.run`, `run_simulation_residual.run`
+   (RESIDUAL_ITERS iterations) and `run_eval.run` (the expert's horizon, 10
+   steps) from them. Then `evaluate_horizon` of the hybrid (random weights
+   from the seed) and `evaluate_ensemble_horizon` of the two members, both at
+   RK4. The kernel must launch exactly EVAL_LAUNCHES times on each RK4 path
+   (one per chunk; the ensemble's neural member has no Roche field) and never
+   on a DOPRI5 path.
 
-The last lines are the `kernels` JSON, the nvidia-smi line and
+Then the `profile` line: for each training iteration set aside above (the
+main path's, the real hybrid's at both step sizes, the flow's), its ATen
+calls, CUDA kernels, host launch calls and the share of its untraced wall
+time the GPU was busy under torch.profiler. It comes last because a trace
+with CUDA activity slows every later step of the process. The last lines are
+the `kernels` JSON (the RK4 kernel's launches on every path of the run beside
+the main path's `launches`), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 
@@ -84,11 +106,12 @@ COHORT = os.path.join("data_s123", "datafile_dose_exp.pkl")
 T_GRID, N_SUB = 15, 8
 EVAL_LAUNCHES = 4  # one per chunk of the 200-patient test fold at batch 50
 EVAL_REPEATS = 5  # further timed GPU evaluations after the counted one
+PLAIN_RUNS = 5  # timed runs of a kernel's plain version (phase 3)
 # (B, D, Hill exponent or None for the cohort's 2.0). The first is evaluate's shape:
 # (50 MC + 1) x 50 patients; the next two are the two launches a chunk took before.
-# Phase 5: the training run (OptimConfig(shuffle=False, niters=6, test_freq=2, early_stop=10)) and the
+# Phase 5: the training run (OptimConfig(shuffle=False, niters=4, test_freq=2, early_stop=10)) and the
 # agreement its GPU and CPU runs must keep (curves and metrics: float32 solves whose step sequences may differ).
-TRAIN_ITERS, TRAIN_TEST_FREQ, TRAIN_BATCH = 6, 2, 50
+TRAIN_ITERS, TRAIN_TEST_FREQ, TRAIN_BATCH = 4, 2, 50
 TRAIN_RTOL = 1e-3
 # Phase 6: the real track on data_real/ (full width), and the GPU-vs-CPU agreement of its curves and horizon RMSEs
 # (the masked MSE draws no noise, so both devices see the same batches and inputs). The hybrid's agreement is held
@@ -100,6 +123,12 @@ REAL_ITERS, REAL_TEST_FREQ, REAL_OTHER_ITERS = 10, 5, 2
 REAL_HELD_STEP_DIV = 2
 REAL_RTOL = 1e-3
 REAL_OTHER_METHODS = ("neural", "2nd", "expert", "tlstm", "gruode")
+# Phase 7: the flow CLI (its CLI defaults: 4 planar flows, a 50-sample MC KL) for FLOW_ITERS iterations, validation
+# every FLOW_TEST_FREQ; expert and neural members for MEMBER_ITERS; the residual model for RESIDUAL_ITERS. GPU against
+# CPU within SIM_MORE_RTOL, as the main path's phases hold them. Horizon vectors have T - t0 = 10 steps.
+FLOW_ITERS, FLOW_TEST_FREQ, MEMBER_ITERS, RESIDUAL_ITERS = 4, 2, 2, 2
+SIM_MORE_RTOL = 1e-3
+HORIZON_STEPS = 10
 KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None), (1000, 8, None), (7, 6, None),
                 (2550, 6, 1.7)]
 
@@ -187,7 +216,7 @@ def phase_kernels(cohort, seed):
             ok = bool(torch.isfinite(got).all()) and bool((err <= ATOL + RTOL * want.abs()).all())
             ms = cuda_ms(lambda: roche_rk4.roche_rk4_trajectory(**inp))
             device_ms = queued_ms(lambda: roche_rk4.roche_rk4_trajectory(**inp))
-            plain_ms = cuda_ms(lambda: roche_rk4.roche_rk4_trajectory_reference(**inp))
+            plain_ms = cuda_ms(lambda: roche_rk4.roche_rk4_trajectory_reference(**inp), warmup=1, runs=PLAIN_RUNS)
         flops = roche_rk4.roche_rk4_flops(B, D, T_GRID, N_SUB)
         nbytes = 4 * (B * D + 2 * B + 13 + D * (D - 4) + (D - 4) + T_GRID + T_GRID * B * D)
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -234,16 +263,14 @@ def phase_slice(cohort, args):
     gpu_runs = [run("cuda", params, verbose=False)[1] for _ in range(EVAL_REPEATS)]  # run-to-run spread
     cpu, cpu_s = run("cpu", copy.deepcopy(params).to("cpu"), verbose=False)
 
-    names = ("rmse_z0", "cprs_z0", "rmse_x", "cprs_x")
-    gpu_m = dict(zip(names, (gpu[0], gpu[2], gpu[3], gpu[5])))
-    cpu_m = dict(zip(names, (cpu[0], cpu[2], cpu[3], cpu[5])))
+    gpu_m, cpu_m = _scores(gpu), _scores(cpu)
     print("slice " + json.dumps(dict(evaluate_s_gpu=gpu_s, evaluate_s_gpu_runs=gpu_runs, evaluate_s_cpu=cpu_s,
                                      launches=launches, gpu=gpu_m, cpu=cpu_m)), flush=True)
     if not all(map(lambda v: v == v and abs(v) != float("inf"), gpu_m.values())):
         raise SystemExit(f"non-finite metrics on the GPU: {gpu_m}")
     if launches != EVAL_LAUNCHES:
         raise SystemExit(f"expected {EVAL_LAUNCHES} roche_rk4 launches in evaluate (one per chunk), got {launches}")
-    for k in names:
+    for k in gpu_m:
         if abs(gpu_m[k] - cpu_m[k]) > METRIC_RTOL * abs(cpu_m[k]):
             raise SystemExit(f"{k}: GPU {gpu_m[k]} vs CPU {cpu_m[k]} beyond rtol={METRIC_RTOL}")
     return launches
@@ -256,20 +283,23 @@ def _rel_diff(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _train_run(device, seed, tmp):
-    """The CLI's run on `device`; -> its curve, per-step seconds, evaluate seconds and scores, params, model."""
-    from hybridode_torch.cli import run_simulation
-    from hybridode_torch.config import DataConfig, EvalConfig, OptimConfig
+def _optim(niters, test_freq):
+    from hybridode_torch.config import OptimConfig
 
-    optim = OptimConfig(shuffle=False, niters=TRAIN_ITERS, test_freq=TRAIN_TEST_FREQ, early_stop=10, n_restart=1,
-                        batch_size=TRAIN_BATCH)
+    return OptimConfig(shuffle=False, niters=niters, test_freq=test_freq, early_stop=10, n_restart=1,
+                       batch_size=TRAIN_BATCH)
+
+
+def _logged_run(cli, device, tmp, **kw):
+    """A simulation CLI's `run` on `device` on data_s123 with its curve and event logs; -> its curve, per-step
+    seconds, evaluate seconds and scores, params, model."""
+    from hybridode_torch.config import DataConfig, EvalConfig
+
     path, curve_path, events_path = tmp + "/", os.path.join(tmp, "curve.csv"), os.path.join(tmp, "events.jsonl")
     t = time.perf_counter()
-    params, model, scores = run_simulation.run(
-        seed=seed, elbo=True, eval_only=False, init_path=None, data_path=COHORT, sample=1000,
-        data_config=DataConfig(), model_method="hybrid", path=path, optim_config=optim,
-        eval_config=EvalConfig(t0=5), val_criterion="forecast", curve_path=curve_path, events_path=events_path,
-        device=device)
+    params, model, scores = cli.run(data_path=COHORT, sample=1000, data_config=DataConfig(), path=path,
+                                    eval_config=EvalConfig(t0=5), val_criterion="forecast", curve_path=curve_path,
+                                    events_path=events_path, device=device, **kw)
     seconds = time.perf_counter() - t
     with open(curve_path) as f:
         curve = [[float(x) for x in ln.split(",")] for ln in f if ln.strip()]
@@ -279,6 +309,14 @@ def _train_run(device, seed, tmp):
     return dict(curve=curve, step_s=[e["seconds"] for e in steps], first_loss=steps[0]["train_loss"],
                 evaluate=next(e for e in events if e["event"] == "evaluate"), seconds=seconds,
                 checkpoint=os.path.exists(path + model.model_name)), params, model, scores
+
+
+def _train_run(device, seed, tmp):
+    """The main path's CLI (`run_simulation --method hybrid`) on `device`; -> as `_logged_run`."""
+    from hybridode_torch.cli import run_simulation
+
+    return _logged_run(run_simulation, device, tmp, seed=seed, elbo=True, eval_only=False, init_path=None,
+                       model_method="hybrid", optim_config=_optim(TRAIN_ITERS, TRAIN_TEST_FREQ))
 
 
 def _aten_counter():
@@ -329,10 +367,39 @@ def _first_batch_steps(model, seed, device="cuda"):
                 aten_calls_per_trial_step=count.calls / run, success=bool(st.success.all()), loss=loss), batch
 
 
-def _profile_step(params, model, batch, seed):
-    """One training iteration with and without torch.profiler: CUDA kernels, host launch calls, busy share."""
+def _traced(fn, activities=("CPU", "CUDA")):
+    """fn() under torch.profiler; -> (its result, the sorted (start, end) microseconds of its device kernels, its
+    kernel launch calls).
+
+    The trace's events hold one another in reference cycles (millions of
+    objects for a training step) that outlive the profiler until a full
+    collection, so they are collected here.
+    """
+    import gc
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[getattr(ProfilerActivity, a) for a in activities]) as prof:
+        out = fn()
+    events = prof.events()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    del prof, events
+    gc.collect()
+    return out, kernels, launches
+
+
+def _profile_probe(params, model, batch, seed):
+    """One training iteration's profile in two parts. Now: a warm-up step (its ATen calls counted, the optimizer's
+    state made) and a plain step, timed. -> a function that later runs the step under torch.profiler and returns
+    the profile: CUDA kernels, host launch calls, busy share.
+
+    A trace with CUDA activity slows every later step of the process by ~1.3x, even once its events are
+    collected (`flow_step_study.py`), so `main` traces only after every timed phase.
+    """
+    import torch
 
     from hybridode_torch.config import OptimConfig
     from hybridode_torch.inference import make_optimizer, train_step
@@ -346,26 +413,25 @@ def _profile_step(params, model, batch, seed):
         return time.perf_counter() - t, loss.item()
 
     with _aten_counter() as count:
-        step()  # also the warm-up of the optimizer state
+        step()
     plain_s, _ = step()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_s, loss = step()
-    events = prof.events()
-    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    busy, end = 0.0, -math.inf
-    for a, b in kernels:  # union of the kernels' intervals, in microseconds
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return dict(step_s=plain_s, profiled_step_s=profiled_s, aten_calls=count.calls, cuda_kernels=len(kernels),
-                launch_calls=launches,
-                device_busy_us=busy if kernels else None,
-                busy_share=(busy * 1e-6 / plain_s) if kernels else None,
-                busy_share_profiled=(busy * 1e-6 / profiled_s) if kernels else None, loss=loss)
+
+    def trace():
+        (profiled_s, loss), kernels, launches = _traced(step)
+        busy, end = 0.0, -math.inf
+        for a, b in kernels:  # union of the kernels' intervals, in microseconds
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return dict(step_s=plain_s, profiled_step_s=profiled_s, aten_calls=count.calls, cuda_kernels=len(kernels),
+                    launch_calls=launches,
+                    device_busy_us=busy if kernels else None,
+                    busy_share=(busy * 1e-6 / plain_s) if kernels else None,
+                    busy_share_profiled=(busy * 1e-6 / profiled_s) if kernels else None, loss=loss)
+
+    return trace
 
 
-def phase_train(args):
+def phase_train(args, probes):
     import torch
 
     from hybridode_torch.ops import roche_rk4
@@ -379,47 +445,61 @@ def phase_train(args):
         rk4_launches = roche_rk4.roche_rk4_trajectory.launches
         runs["cpu"], _, _, cpu_scores = _train_run("cpu", args.seed, os.path.join(tmp, "cpu"))
     steps, batch = _first_batch_steps(model, args.seed)
-    prof = _profile_step(params, model, batch, args.seed)
+    probes["train"] = _profile_probe(params, model, batch, args.seed)
 
-    gpu, cpu = runs["cuda"], runs["cpu"]
-    names = ("rmse_z0", "cprs_z0", "rmse_x", "cprs_x")
-    gpu_m = dict(zip(names, (gpu_scores[0], gpu_scores[2], gpu_scores[3], gpu_scores[5])))
-    cpu_m = dict(zip(names, (cpu_scores[0], cpu_scores[2], cpu_scores[3], cpu_scores[5])))
-    gpu_losses = [v for row in gpu["curve"] for v in row[1:]]
-    cpu_losses = [v for row in cpu["curve"] for v in row[1:]]
-    curve_diff = max((_rel_diff(a, b) for a, b in zip(gpu_losses, cpu_losses)), default=math.inf)
-    metric_diff = max(_rel_diff(gpu_m[k], cpu_m[k]) for k in names)
-    line = dict(
-        seconds=time.perf_counter() - t0,
-        iter_s_gpu=statistics.median(gpu["step_s"]), iter_s_cpu=statistics.median(cpu["step_s"]),
-        iter_s_gpu_all=gpu["step_s"], iter_s_cpu_all=cpu["step_s"],
-        evaluate_s_gpu=gpu["evaluate"]["seconds"], evaluate_s_cpu=cpu["evaluate"]["seconds"],
-        run_s_gpu=gpu["seconds"], run_s_cpu=cpu["seconds"],
-        first_batch_steps=steps, first_loss_gpu=gpu["first_loss"],
-        curve_gpu=gpu["curve"], curve_cpu=cpu["curve"], curve_max_rel_diff=curve_diff,
-        gpu=gpu_m, cpu=cpu_m, metric_max_rel_diff=metric_diff,
-        profile=prof, roche_rk4_launches=rk4_launches, checkpoint_gpu=gpu["checkpoint"],
-        checkpoint_cpu=cpu["checkpoint"],
-    )
+    line = dict(seconds=time.perf_counter() - t0, **_held_pair(runs, gpu_scores, cpu_scores),
+                first_batch_steps=steps, roche_rk4_launches=rk4_launches)
     print("train " + json.dumps(line), flush=True)
-
-    finite = lambda v: v == v and abs(v) != math.inf  # noqa: E731
-    for k in names:
-        if finite(cpu_m[k]) and not finite(gpu_m[k]):
-            raise SystemExit(f"{k}: non-finite on the GPU ({gpu_m[k]}) where the CPU's is {cpu_m[k]}")
-    for a, b in zip(gpu_losses, cpu_losses):
-        if finite(b) and not finite(a):
-            raise SystemExit(f"a GPU training or validation loss is non-finite ({a}) where the CPU's is {b}")
-    if len(gpu["curve"]) != TRAIN_ITERS // TRAIN_TEST_FREQ or len(gpu["curve"]) != len(cpu["curve"]):
-        raise SystemExit(f"curves of {len(gpu['curve'])} (GPU) and {len(cpu['curve'])} (CPU) validations, "
-                         f"expected {TRAIN_ITERS // TRAIN_TEST_FREQ}")
-    if curve_diff > TRAIN_RTOL or metric_diff > TRAIN_RTOL:
-        raise SystemExit(f"GPU vs CPU beyond rtol={TRAIN_RTOL}: curve {curve_diff}, metrics {metric_diff}")
-    if not (gpu["checkpoint"] and cpu["checkpoint"]):
-        raise SystemExit("the training run wrote no checkpoint")
+    _check_pair(line, TRAIN_ITERS, TRAIN_TEST_FREQ, TRAIN_RTOL)
     if rk4_launches:
         raise SystemExit(f"the RK4 kernel was launched {rk4_launches} times on the DOPRI5 training path")
     return line
+
+
+def _scores(scores) -> dict:
+    """The four metrics of `evaluate`'s six numbers."""
+    return dict(zip(("rmse_z0", "cprs_z0", "rmse_x", "cprs_x"), (scores[0], scores[2], scores[3], scores[5])))
+
+
+def _losses(curve):
+    return [v for row in curve for v in row[1:]]
+
+
+def _held_pair(runs, gpu_scores, cpu_scores):
+    """A training CLI's GPU and CPU runs side by side; -> their summary (see `_check_pair`)."""
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    gpu_m, cpu_m = _scores(gpu_scores), _scores(cpu_scores)
+    return dict(
+        iter_s_gpu=statistics.median(gpu["step_s"]), iter_s_cpu=statistics.median(cpu["step_s"]),
+        iter_s_gpu_all=gpu["step_s"], iter_s_cpu_all=cpu["step_s"],
+        evaluate_s_gpu=gpu["evaluate"]["seconds"], evaluate_s_cpu=cpu["evaluate"]["seconds"],
+        run_s_gpu=gpu["seconds"], run_s_cpu=cpu["seconds"], first_loss_gpu=gpu["first_loss"],
+        curve_gpu=gpu["curve"], curve_cpu=cpu["curve"],
+        curve_max_rel_diff=max((_rel_diff(a, b) for a, b in zip(_losses(gpu["curve"]), _losses(cpu["curve"]))),
+                               default=math.inf),
+        gpu=gpu_m, cpu=cpu_m, metric_max_rel_diff=max(_rel_diff(gpu_m[k], cpu_m[k]) for k in gpu_m),
+        checkpoint_gpu=gpu["checkpoint"], checkpoint_cpu=cpu["checkpoint"],
+    )
+
+
+def _check_pair(pair, iters, test_freq, rtol):
+    """Exits on a non-finite GPU metric or loss where the CPU's is finite, a curve of the wrong length, a curve or
+    metric beyond `rtol`, or a missing checkpoint."""
+    finite = lambda v: v == v and abs(v) != math.inf  # noqa: E731
+    for k, v in pair["gpu"].items():
+        if finite(pair["cpu"][k]) and not finite(v):
+            raise SystemExit(f"{k}: non-finite on the GPU ({v}) where the CPU's is {pair['cpu'][k]}")
+    for a, b in zip(_losses(pair["curve_gpu"]), _losses(pair["curve_cpu"])):
+        if finite(b) and not finite(a):
+            raise SystemExit(f"a GPU training or validation loss is non-finite ({a}) where the CPU's is {b}")
+    if len(pair["curve_gpu"]) != iters // test_freq or len(pair["curve_gpu"]) != len(pair["curve_cpu"]):
+        raise SystemExit(f"curves of {len(pair['curve_gpu'])} (GPU) and {len(pair['curve_cpu'])} (CPU) validations, "
+                         f"expected {iters // test_freq}")
+    if pair["curve_max_rel_diff"] > rtol or pair["metric_max_rel_diff"] > rtol:
+        raise SystemExit(f"GPU vs CPU beyond rtol={rtol}: curve {pair['curve_max_rel_diff']}, "
+                         f"metrics {pair['metric_max_rel_diff']}")
+    if not (pair["checkpoint_gpu"] and pair["checkpoint_cpu"]):
+        raise SystemExit("the training run wrote no checkpoint")
 
 
 def _real_run(device, seed, model_dir, method="hybrid", niters=REAL_ITERS, test_freq=REAL_TEST_FREQ, ode_step_div=1):
@@ -446,8 +526,9 @@ def _real_run(device, seed, model_dir, method="hybrid", niters=REAL_ITERS, test_
                 rmse=[r[1] for r in report], seconds=seconds), params, model
 
 
-def _real_pair(seed, tmp, ode_step_div):
-    """The hybrid real run on the GPU, then on the CPU, and their profile: one iteration on iteration 1's batch."""
+def _real_pair(seed, tmp, ode_step_div, probes):
+    """The hybrid real run on the GPU, then on the CPU; its profile probe (one iteration on iteration 1's batch)
+    goes into `probes`."""
     import torch
 
     from hybridode_torch.data import RealCohort
@@ -458,6 +539,7 @@ def _real_pair(seed, tmp, ode_step_div):
     cohort = RealCohort(REAL_DATA, device="cuda")
     cohort.split_sample()
     first = cohort.get_split("train", 100, 1 % max(1, cohort.train_size // 100))
+    probes[f"real_step_div_{ode_step_div}"] = _profile_probe(params, model, first, seed)
     gpu_losses = [v for row in gpu["curve"] for v in row[1:]]
     cpu_losses = [v for row in cpu["curve"] for v in row[1:]]
     return dict(
@@ -470,7 +552,6 @@ def _real_pair(seed, tmp, ode_step_div):
         rmse_max_rel_diff=max(_rel_diff(a, b) for a, b in zip(gpu["rmse"], cpu["rmse"])),
         curve_gpu=gpu["curve"], curve_cpu=cpu["curve"],
         curve_max_rel_diff=max((_rel_diff(a, b) for a, b in zip(gpu_losses, cpu_losses)), default=math.inf),
-        profile=_profile_step(params, model, first, seed),
     ), gpu_losses, cpu_losses
 
 
@@ -484,7 +565,7 @@ def _blend_run(cli, device, seed, init_path, model_dir):
     return dict(rmse=[r[1] for r in report], seconds=time.perf_counter() - t)
 
 
-def phase_real(args):
+def phase_real(args, probes):
     import torch
 
     from hybridode_torch.cli import run_real_ensemble, run_real_residual
@@ -494,8 +575,8 @@ def phase_real(args):
     t0 = time.perf_counter()
     roche_rk4.roche_rk4_trajectory.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        cli, cli_gpu_losses, cli_cpu_losses = _real_pair(args.seed, tmp, 1)
-        held, _, _ = _real_pair(args.seed, tmp, REAL_HELD_STEP_DIV)
+        cli, cli_gpu_losses, cli_cpu_losses = _real_pair(args.seed, tmp, 1, probes)
+        held, _, _ = _real_pair(args.seed, tmp, REAL_HELD_STEP_DIV, probes)
 
         models = os.path.join(tmp, "models")
         others = {}
@@ -539,6 +620,147 @@ def phase_real(args):
     return line
 
 
+def _counted(fn):
+    """fn() on the GPU, synchronised; -> (its result, seconds, RK4 kernel launches made in it)."""
+    import torch
+
+    from hybridode_torch.ops import roche_rk4
+
+    roche_rk4.roche_rk4_trajectory.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, roche_rk4.roche_rk4_trajectory.launches
+
+
+def _both(fn, seed):
+    """fn(device) on the GPU (launches counted) and on the CPU, np.random seeded alike for the bootstrap SDs;
+    -> dict(gpu, cpu, seconds_gpu, seconds_cpu, roche_rk4_launches, max_rel_diff)."""
+    import numpy as np
+
+    np.random.seed(seed)
+    gpu, gpu_s, launches = _counted(lambda: fn("cuda"))
+    np.random.seed(seed)
+    t = time.perf_counter()
+    cpu = fn("cpu")
+    cpu_s = time.perf_counter() - t
+    if isinstance(gpu, tuple):  # the six numbers of an evaluation
+        gpu, cpu = _scores(gpu), _scores(cpu)
+    else:  # the dict of numpy vectors of a horizon evaluation
+        gpu, cpu = ({k: [float(x) for x in v] for k, v in d.items()} for d in (gpu, cpu))
+    return dict(gpu=gpu, cpu=cpu, seconds_gpu=gpu_s, seconds_cpu=cpu_s, roche_rk4_launches=launches,
+                max_rel_diff=max(_rel_diff(a, b) for a, b in zip(_flat(gpu), _flat(cpu))))
+
+
+def _flat(values: dict) -> list:
+    """The numbers of a dict of numbers and lists, in order."""
+    return [x for v in values.values() for x in (v if isinstance(v, list) else [v])]
+
+
+def _rk4_at_eval_step(model):
+    return model._replace(decoder_spec=model.decoder_spec._replace(method="rk4", ode_step_size=0.125))
+
+
+def phase_sim_more(args, probes):
+    """Phase 7: the flow CLI, the flow posterior's RK4 evaluate, the ensemble, residual and run_eval CLIs, and the
+    kernel on the horizon and ensemble-horizon paths; each on the GPU and on the CPU from the same seed."""
+    import torch
+
+    from hybridode_torch.cli import run_eval, run_simulation, run_simulation_ensemble, run_simulation_flow
+    from hybridode_torch.cli import run_simulation_residual
+    from hybridode_torch.cli.common import build_sim_model
+    from hybridode_torch.config import DataConfig, EvalConfig, OptimConfig
+    from hybridode_torch.data import SyntheticCohort
+    from hybridode_torch.eval import evaluate, evaluate_ensemble_horizon, evaluate_horizon
+    from hybridode_torch.inference import init_vi, load_checkpoint
+    from hybridode_torch.ops import roche_rk4
+
+    t0, seed = time.perf_counter(), args.seed
+    gen = lambda: torch.Generator().manual_seed(seed)  # noqa: E731
+    line, faults = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        # The flow CLI (LHM-NF) on both devices: curves and metrics held, no kernel on its DOPRI5 path.
+        runs = {}
+        roche_rk4.roche_rk4_trajectory.launches = 0
+        runs["cuda"], params, model, gpu_scores = _logged_run(
+            run_simulation_flow, "cuda", os.path.join(tmp, "flow_gpu"), seed=seed, eval_only=False,
+            optim_config=_optim(FLOW_ITERS, FLOW_TEST_FREQ))
+        torch.cuda.synchronize()
+        flow_launches = roche_rk4.roche_rk4_trajectory.launches
+        runs["cpu"], _, _, cpu_scores = _logged_run(run_simulation_flow, "cpu", os.path.join(tmp, "flow_cpu"),
+                                                    seed=seed, eval_only=False,
+                                                    optim_config=_optim(FLOW_ITERS, FLOW_TEST_FREQ))
+        train = SyntheticCohort.load(COHORT, device="cuda")
+        train.set_train_size(1000)
+        first = train.get_split("train", TRAIN_BATCH, 1 % max(1, train.train_size // TRAIN_BATCH))
+        probes["flow"] = _profile_probe(params, model, first, seed)
+        line["flow"] = dict(**_held_pair(runs, gpu_scores, cpu_scores), roche_rk4_launches=flow_launches)
+
+        # The flow checkpoint evaluated through the RK4 kernel (GPU) and its plain version (CPU).
+        flow_rk4 = _rk4_at_eval_step(model)
+        flow_params, _, _ = load_checkpoint(os.path.join(tmp, "flow_gpu") + "/", model.model_name, device="cpu")
+        line["flow_evaluate"] = _both(lambda d: evaluate(copy.deepcopy(flow_params).to(d), flow_rk4,
+                                                         SyntheticCohort.load(COHORT, device=d), 50, 5,
+                                                         generator=gen(), verbose=False, device=d), seed)
+
+        # Expert and neural members (GPU), then the ensemble, residual and run_eval CLIs from their checkpoints.
+        members = os.path.join(tmp, "members") + "/"
+        seconds, launches = {}, 0
+        for method in ("expert", "neural"):
+            _, seconds[method], n = _counted(lambda: run_simulation.run(
+                seed=seed, elbo=True, eval_only=False, init_path=None, data_path=COHORT, sample=1000,
+                data_config=DataConfig(), model_method=method, path=members, optim_config=_optim(MEMBER_ITERS,
+                                                                                                  MEMBER_ITERS),
+                eval_config=EvalConfig(t0=5), device="cuda"))
+            launches += n
+        line["members"] = dict(seconds=seconds, roche_rk4_launches=launches)
+        line["ensemble"] = _both(lambda d: run_simulation_ensemble.run(
+            seed, COHORT, 1000, DataConfig(), members, OptimConfig(shuffle=False, n_restart=5), EvalConfig(t0=5),
+            device=d), seed)
+        line["residual"] = _both(lambda d: run_simulation_residual.run(
+            seed, False, COHORT, 1000, DataConfig(), members, os.path.join(tmp, f"res_{d}_"),
+            _optim(RESIDUAL_ITERS, RESIDUAL_ITERS), EvalConfig(t0=5), device=d), seed)
+        line["run_eval"] = _both(lambda d: run_eval.run(seed, COHORT, DataConfig(), "expert", members,
+                                                        OptimConfig(batch_size=50), EvalConfig(t0=5), device=d), seed)
+
+        # The kernel on the horizon paths: the hybrid, and the ensemble of the two members, at RK4.
+        hybrid = _rk4_at_eval_step(build_sim_model("hybrid", DataConfig()))
+        hybrid_params = init_vi(gen(), hybrid, device="cpu")
+        line["evaluate_horizon"] = _both(lambda d: evaluate_horizon(
+            copy.deepcopy(hybrid_params).to(d), hybrid, SyntheticCohort.load(COHORT, device=d), 50, 5,
+            generator=gen(), device=d), seed)
+        pairs = [(load_checkpoint(members, m.model_name, device="cpu")[0], m)
+                 for m in (_rk4_at_eval_step(build_sim_model(k, DataConfig())) for k in ("expert", "neural"))]
+        line["evaluate_ensemble_horizon"] = _both(lambda d: evaluate_ensemble_horizon(
+            *(x for p, m in pairs for x in (copy.deepcopy(p).to(d), m)), SyntheticCohort.load(COHORT, device=d), 50,
+            5, generator=gen(), device=d), seed)
+
+    line["seconds"] = time.perf_counter() - t0
+    print("sim_more " + json.dumps(line), flush=True)
+
+    _check_pair(line["flow"], FLOW_ITERS, FLOW_TEST_FREQ, SIM_MORE_RTOL)
+    for name in ("flow", "members", "ensemble", "residual", "run_eval"):  # DOPRI5 paths
+        if line[name]["roche_rk4_launches"]:
+            faults.append(f"{name}: the RK4 kernel was launched {line[name]['roche_rk4_launches']} times on a "
+                          "DOPRI5 path")
+    for name in ("flow_evaluate", "ensemble", "residual", "run_eval", "evaluate_horizon", "evaluate_ensemble_horizon"):
+        run = line[name]
+        if not all(math.isfinite(x) for x in _flat(run["gpu"])):
+            faults.append(f"{name}: non-finite values on the GPU: {run['gpu']}")
+        if run["max_rel_diff"] > SIM_MORE_RTOL:
+            faults.append(f"{name}: GPU vs CPU {run['max_rel_diff']} beyond rtol={SIM_MORE_RTOL}")
+    for name in ("run_eval", "evaluate_horizon", "evaluate_ensemble_horizon"):
+        if any(len(v) != HORIZON_STEPS for v in line[name]["gpu"].values()):
+            faults.append(f"{name}: horizon vectors are not of length {HORIZON_STEPS}")
+    for name in ("flow_evaluate", "evaluate_horizon", "evaluate_ensemble_horizon"):
+        if line[name]["roche_rk4_launches"] != EVAL_LAUNCHES:
+            faults.append(f"{name}: expected {EVAL_LAUNCHES} roche_rk4 launches (one per chunk), got "
+                          f"{line[name]['roche_rk4_launches']}")
+    if faults:
+        raise SystemExit("; ".join(faults))
+    return line
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ckpt", default=None, help="checkpoint path prefix written by either package")
@@ -572,13 +794,26 @@ def main(argv=None) -> int:
     cohort = SyntheticCohort.load(COHORT, device="cuda")
     rows = phase_kernels(cohort, args.seed)
     launches = phase_slice(cohort, args)
-    phase_train(args)
-    phase_real(args)
+    probes = {}
+    train = phase_train(args, probes)
+    real = phase_real(args, probes)
+    more = phase_sim_more(args, probes)
+    print("profile " + json.dumps({name: trace() for name, trace in probes.items()}), flush=True)
 
     main_row = rows[0]  # B=2550: the one launch of each chunk of evaluate
     print(json.dumps({"kernels": [dict(
         name="roche_rk4", route="cuda", source="hybridode_torch/ops/csrc/roche_rk4.cu",
         replaces="hybridode/ops/pallas/roche_kernel.py:151", launches=launches,
+        launches_by_path=dict(
+            evaluate=launches, evaluate_horizon=more["evaluate_horizon"]["roche_rk4_launches"],
+            evaluate_ensemble_horizon=more["evaluate_ensemble_horizon"]["roche_rk4_launches"],
+            flow_evaluate=more["flow_evaluate"]["roche_rk4_launches"],
+            run_simulation=train["roche_rk4_launches"], run_real=real["roche_rk4_launches"],
+            run_simulation_flow=more["flow"]["roche_rk4_launches"],
+            run_simulation_members=more["members"]["roche_rk4_launches"],
+            run_simulation_ensemble=more["ensemble"]["roche_rk4_launches"],
+            run_simulation_residual=more["residual"]["roche_rk4_launches"],
+            run_eval=more["run_eval"]["roche_rk4_launches"]),
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"], device_ms=main_row["device_ms"],
         plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

@@ -1,1 +1,1 @@
-"""Command-line plumbing. The CLIs themselves come with the training slice."""
+"""Command-line entry points of the port: `python -m hybridode_torch.cli.<name>`, each with the JAX CLI's flags."""

@@ -1,8 +1,7 @@
 """Shared CLI plumbing (counterpart of `resolve_data_config`, `build_sim_model` and `build_real_model`,
 hybridode/cli/common.py:30-160).
 
-Same signatures and the same spec values as the JAX package. The flow
-posterior is not ported yet.
+Same signatures and the same spec values as the JAX package.
 """
 
 from __future__ import annotations
@@ -10,7 +9,7 @@ from __future__ import annotations
 from ..config import DataConfig, dim8_config, dim12_config
 from ..inference.elbo import VIModel
 from ..models.decoders import RealBenchmarkSpec, RealDecoderSpec, SimDecoderSpec
-from ..models.encoders import EncoderLSTMRealSpec, EncoderLSTMSpec
+from ..models.encoders import EncoderLSTMRealSpec, EncoderLSTMSpec, EncoderPlanarLSTMSpec
 
 
 def resolve_data_config(name: str | None, sample: int) -> DataConfig:
@@ -41,9 +40,9 @@ def build_sim_model(
     expert: 4 encoder latents, Roche field, Exponential prior, positivity
     normalisation. neural: full latents, black-box field, analytic-normal KL,
     no normalisation. hybrid: full latents, Roche+ml field, Exponential prior.
+    With `flow` the encoder carries `num_flows` amortised planar flows
+    (`kind="flow"`, the LHM-NF posterior).
     """
-    if flow:
-        raise NotImplementedError("the flow posterior is not ported yet (ROADMAP.md, queue 1, item 6)")
     obs = data_config.obs_dim
     act = data_config.action_dim
     neural = method == "neural"
@@ -60,7 +59,10 @@ def build_sim_model(
         max_steps = (4096 if lockstep else 256) if roche else 512
 
     hidden = int(obs * 2.0)  # encoder_latent_ratio=2.0
-    enc = EncoderLSTMSpec(obs + act, hidden, encoder_output_dim, normalize=normalize)
+    if flow:
+        enc = EncoderPlanarLSTMSpec(obs + act, hidden, encoder_output_dim, num_flows=num_flows, normalize=normalize)
+    else:
+        enc = EncoderLSTMSpec(obs + act, hidden, encoder_output_dim, normalize=normalize)
     dec = SimDecoderSpec(
         obs,
         encoder_output_dim,
@@ -77,7 +79,8 @@ def build_sim_model(
         use_adjoint=roche and lockstep,
         max_record=1024 if (roche and lockstep) else None,
     )
-    return VIModel(kind="sim", encoder_spec=enc, decoder_spec=dec, elbo=elbo, prior=prior, mc_size=mc_size)
+    return VIModel(kind="flow" if flow else "sim", encoder_spec=enc, decoder_spec=dec, elbo=elbo, prior=prior,
+                   mc_size=mc_size)
 
 
 def build_real_model(

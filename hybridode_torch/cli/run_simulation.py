@@ -76,8 +76,7 @@ def run(
     """Train n_restart times, then evaluate; -> (params, model, the six numbers of `evaluate`).
 
     `restart_devices` belongs to the unported `--restart_mode shard` and is
-    accepted for signature parity. The event log gets an `evaluate` record
-    with its seconds and scores after the training loop's records.
+    accepted for signature parity.
     """
     device = resolve_device(device)
     _refuse_unported(dp_devices, eval_mesh, lockstep, restart_mode)
@@ -99,6 +98,22 @@ def run(
     )
 
     niters = optim_config.niters if arg_itr is None else arg_itr
+    params, scores = fit_and_evaluate(model, dg, generator, eval_only=eval_only, init_path=init_path, niters=niters,
+                                      path=path, optim_config=optim_config, eval_config=eval_config,
+                                      val_criterion=val_criterion, curve_path=curve_path, events_path=events_path,
+                                      device=device)
+    return params, model, scores
+
+
+def fit_and_evaluate(model, dg, generator, *, eval_only, init_path, niters, path, optim_config, eval_config,
+                     val_criterion, curve_path, events_path, device):
+    """The restart loop and the final evaluation shared by the simulation CLIs; -> (params, scores).
+
+    Each restart draws its initialisation and its training noise from
+    `generator` in turn; the best-on-disk is shared across restarts. With
+    `eval_only` the checkpoint at `path` is loaded and scored instead. The
+    event log gets an `evaluate` record with its seconds and scores.
+    """
     best_on_disk = 1e9
     params = None
     for _ in range(optim_config.n_restart):
@@ -136,7 +151,7 @@ def run(
     events = JSONLLogger(events_path)
     events.log("evaluate", seconds=time.perf_counter() - t, **dict(zip(SCORE_NAMES, scores)))
     events.close()
-    return params, model, scores
+    return params, scores
 
 
 def build_parser():

@@ -1,7 +1,7 @@
 """Synthetic PK/PD cohorts: loading and fold splits.
 
 Counterpart of `SyntheticCohort.load`, `split_sample`, `get_mini_batch`,
-`get_split` and `set_train_size` in hybridode/data/synthetic.py:192-257. Generation stays in
+`get_split`, `set_train_size` and `set_val_size` in hybridode/data/synthetic.py:192-257. Generation stays in
 the JAX package; the port reads the cohort files it writes.
 """
 
@@ -47,6 +47,10 @@ class SyntheticCohort:
         self.train_size = train_sample_size
         self.n_sample = n_sample
         self.data_train = {k: v[:, :train_sample_size] for k, v in self.data_train.items()}
+
+    def set_val_size(self, n_val: int):
+        self.val_size = n_val
+        self.data_val = {k: v[:, :n_val] for k, v in self.data_val.items()}
 
     def _fold(self, fold: str):
         if fold not in ("train", "val", "test"):

@@ -1,15 +1,15 @@
-"""The variational model and its losses, for the simulation (`kind="sim"`) and real-data (`kind="real"`) tracks.
+"""The variational model and its losses: the simulation track (`kind="sim"`), its
+flow posterior (`kind="flow"`, LHM-NF) and the real-data track (`kind="real"`).
 
 Counterpart of `VIModel`, `init_vi`, `encode`, `decode`, `sim_loss`,
-`real_loss`, `mc_kl`, `forecast_loss_terms`, `forecast_loss` and `loss_fn` in
-hybridode/inference/elbo.py:29-249. The flow posterior (`kind="flow"`) is
-not ported yet.
+`real_loss`, `mc_kl`, `flow_mc_kl`, `flow_loss`, `forecast_loss_terms`,
+`forecast_loss` and `loss_fn` in hybridode/inference/elbo.py:29-249.
 
 JAX draws the ELBO's noise from PRNG keys inside the loss. A key stream
 cannot be replayed here, so the noise is explicit: the losses take the
 draws themselves (`eps` of shape (B, D) for the reparameterisation, `eps_kl`
-of shape (mc, B, D) for the Monte-Carlo KL) or a CPU `torch.Generator` to
-draw them from. Draws are made on the CPU and then moved, so a CPU run and a
+of shape (mc, B, D) for the Monte-Carlo KL, the flow's as the sim's) or a CPU
+`torch.Generator` to draw them from. Draws are made on the CPU and then moved, so a CPU run and a
 GPU run from one seed see the same noise. The real track's CLIs train the
 masked MSE (`elbo=False`), which draws nothing.
 """
@@ -35,7 +35,7 @@ PRIORS = {
 class VIModel(NamedTuple):
     """Static description of an encoder/decoder pair + loss settings."""
 
-    kind: str  # "sim" | "real" | "flow" (not ported)
+    kind: str  # "sim" | "real" | "flow"
     encoder_spec: NamedTuple
     decoder_spec: NamedTuple
     elbo: bool = True
@@ -50,17 +50,12 @@ class VIModel(NamedTuple):
         return f"{tag}_{self.encoder_spec.model_name}_{self.decoder_spec.model_name}.pkl"
 
 
-def _refuse_flow(model: VIModel):
-    if model.kind == "flow":
-        raise NotImplementedError("the flow posterior (VIModel kind 'flow') is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 6)")
-
-
 def init_vi(generator: torch.Generator, model: VIModel, device=None) -> nn.ParamTree:
     """Random parameters {"encoder", "decoder"} drawn from a CPU generator, placed on `device`."""
-    _refuse_flow(model)
     device = resolve_device(device)
-    if model.kind == "real":
+    if model.kind == "flow":
+        enc = encoders.init_encoder_planar_lstm(generator, model.encoder_spec, device=device)
+    elif model.kind == "real":
         enc = encoders.init_encoder_lstm_real(generator, model.encoder_spec, device=device)
     else:
         enc = encoders.init_encoder_lstm(generator, model.encoder_spec, device=device)
@@ -75,7 +70,6 @@ def init_vi(generator: torch.Generator, model: VIModel, device=None) -> nn.Param
 
 
 def decode(params, model: VIModel, z, batch):
-    _refuse_flow(model)
     spec = model.decoder_spec
     if isinstance(spec, decoders.RealDecoderSpec):
         return decoders.real_decoder_apply(params["decoder"], spec, z, batch["actions"], batch["statics"])
@@ -85,7 +79,9 @@ def decode(params, model: VIModel, z, batch):
 
 
 def encode(params, model: VIModel, x, a, mask):
-    _refuse_flow(model)
+    """-> (mu, log_var), or for the flow posterior (mu, log_var, u, w, b)."""
+    if model.kind == "flow":
+        return encoders.encoder_planar_lstm_apply(params["encoder"], model.encoder_spec, x, a, mask)
     if model.kind == "real":
         return encoders.encoder_lstm_real_apply(params["encoder"], model.encoder_spec, x, a, mask)
     return encoders.encoder_lstm_apply(params["encoder"], model.encoder_spec, x, a, mask)
@@ -110,6 +106,7 @@ def draw_noise(model: VIModel, batch_size: int, generator: torch.Generator, devi
     """The ELBO's noise `(eps, eps_kl)`, drawn on the CPU in that order and moved to `device`.
 
     Without `model.elbo` there is none; with the analytic KL (`prior=None`) `eps_kl` is None.
+    The flow posterior draws the same two (its `mc_size == 1` branch leaves `eps_kl` unused).
     """
     if not model.elbo:
         return None, None
@@ -176,15 +173,63 @@ def real_loss(params, model: VIModel, batch, generator: Optional[torch.Generator
     return lik + _analytic_gaussian_kl(mu, log_var)
 
 
-def forecast_loss_terms(params, model: VIModel, batch, t0: int):
+def flow_mc_kl(eps_kl, encoder_out, model: VIModel, prior_log_pdf):
+    """Monte-Carlo KL through the flow posterior over the draws `eps_kl` (mc, B, D); -> (B,).
+
+    No z <= 0 clamp: the flow's exp(z - 5) layer keeps z positive (JAX has none either).
+    """
+    mu, log_var, z, log_det_j, z0 = encoders.planar_reparameterize(encoder_out, model.encoder_spec.num_flows,
+                                                                   eps_kl)
+    log_q = encoders.planar_log_density(mu, log_var, z, log_det_j, z0)
+    return torch.mean(log_q - prior_log_pdf(z), dim=0)
+
+
+def flow_loss(params, model: VIModel, batch, generator: Optional[torch.Generator] = None, *, eps=None,
+              eps_kl=None):
+    """ELBO of the flow posterior: masked squared error of the decode of one flow sample plus the KL.
+
+    The noise is `eps` / `eps_kl` when given, else drawn from `generator`.
+    With `mc_size == 1` the KL is log q - log p of the decoded sample itself
+    (the JAX package's sign, which fixes the reference's log p - log q there).
+    """
+    x, a, mask = batch["measurements"], batch["actions"], batch["masks"]
+    if eps is None:  # the decoded latent is a flow sample even without the ELBO, as in JAX
+        eps, eps_kl = draw_noise(model._replace(elbo=True), x.shape[1], generator, x.device)
+
+    encoder_out = encode(params, model, x, a, mask)
+    mu, log_var, z, log_det_j, z0 = encoders.planar_reparameterize(encoder_out, model.encoder_spec.num_flows, eps)
+    x_hat, _ = decode(params, model, z, batch)
+
+    lik = torch.sum((x - x_hat) ** 2 * mask) / x.shape[1]
+    if not model.elbo:
+        return lik
+
+    prior_log_pdf = PRIORS[model.prior]
+    if model.mc_size == 1:
+        kld = torch.mean(encoders.planar_log_density(mu, log_var, z, log_det_j, z0) - prior_log_pdf(z))
+    else:
+        kld = torch.mean(flow_mc_kl(eps_kl, encoder_out, model, prior_log_pdf))
+    return lik + kld
+
+
+def forecast_loss_terms(params, model: VIModel, batch, t0: int, eps_point=None):
     """(masked squared-error sum, mask count) behind forecast_loss.
 
     The real track encodes [x, a, statics]; its decoders already emit x[t0:].
+    The flow posterior's point is one flow sample of a fixed draw: `eps_point`
+    (B, D), by default drawn on the CPU from a generator seeded 0 on each call
+    (JAX uses PRNGKey(0)).
     """
     x, a, mask = batch["measurements"], batch["actions"], batch["masks"]
     if model.kind == "real":
         a = torch.cat([a, batch["statics"]], dim=-1)
-    z, _ = encode(params, model, x[:t0], a[:t0], mask[:t0])
+    enc_out = encode(params, model, x[:t0], a[:t0], mask[:t0])
+    if model.kind == "flow":
+        if eps_point is None:
+            eps_point = torch.randn(enc_out[0].shape, generator=torch.Generator().manual_seed(0)).to(x.device)
+        z = encoders.planar_reparameterize(enc_out, model.encoder_spec.num_flows, eps_point)[2]
+    else:
+        z = enc_out[0]
     x_hat, _ = decode(params, model, z, batch)
     pred = x_hat[: x.shape[0] - t0] if model.kind == "real" else x_hat[t0:]
     num = torch.sum((x[t0:] - pred) ** 2 * mask[t0:])
@@ -193,7 +238,8 @@ def forecast_loss_terms(params, model: VIModel, batch, t0: int):
 
 
 def forecast_loss(params, model: VIModel, batch, t0: int):
-    """Deterministic forecast error: encode x[:t0] (posterior mean), decode, masked MSE on x[t0:].
+    """Deterministic forecast error: encode x[:t0] (posterior mean, or the flow's fixed sample), decode,
+    masked MSE on x[t0:].
 
     The validation criterion of the CLI's default `--val_criterion forecast`.
     """
@@ -202,7 +248,8 @@ def forecast_loss(params, model: VIModel, batch, t0: int):
 
 
 def loss_fn(params, model: VIModel, batch, generator: Optional[torch.Generator] = None, **noise):
-    """The training loss of `model`: `sim_loss` or `real_loss` by its kind."""
-    if model.kind == "real":
-        return real_loss(params, model, batch, generator, **noise)
-    return sim_loss(params, model, batch, generator, **noise)
+    """The training loss of `model`: `sim_loss`, `real_loss` or `flow_loss` by its kind."""
+    losses = {"sim": sim_loss, "real": real_loss, "flow": flow_loss}
+    if model.kind not in losses:
+        raise ValueError(model.kind)
+    return losses[model.kind](params, model, batch, generator, **noise)

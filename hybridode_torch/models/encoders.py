@@ -1,7 +1,9 @@
-"""Variational posterior encoders (counterpart of hybridode/models/encoders.py:26-59 and :134-173).
+"""Variational posterior encoders (counterpart of hybridode/models/encoders.py:26-173).
 
-`encoder_lstm_*`: the simulation track's reversed LSTM. `encoder_lstm_real_*`:
-the real track's LSTM over [x, a, time], with 2-layer tanh MLP heads.
+`encoder_lstm_*`: the simulation track's reversed LSTM. `encoder_planar_lstm_*`:
+the same LSTM with amortised planar-flow heads, and `planar_reparameterize` /
+`planar_log_density`, the flow posterior (LHM-NF). `encoder_lstm_real_*`: the
+real track's LSTM over [x, a, time], with 2-layer tanh MLP heads.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch
 
 from .. import resolve_device
 from ..config import DTYPE
-from . import nn
+from . import flows, nn, priors
 
 
 class EncoderLSTMSpec(NamedTuple):
@@ -49,6 +51,71 @@ def encoder_lstm_apply(params, spec: EncoderLSTMSpec, x, a, mask):
         mu = torch.exp(mu) / 10.0
         log_var = log_var - 5.0
     return mu, log_var
+
+
+class EncoderPlanarLSTMSpec(NamedTuple):
+    input_dim: int
+    hidden_dim: int
+    output_dim: int
+    num_flows: int
+    normalize: bool = True
+    model_name: str = "PlanarLSTMEncoder"
+
+
+def init_encoder_planar_lstm(generator, spec: EncoderPlanarLSTMSpec, dtype=DTYPE, device=None) -> nn.ParamTree:
+    H, K, D = spec.hidden_dim, spec.num_flows, spec.output_dim
+    tree = {
+        "lstm": nn.lstm_init(generator, spec.input_dim, H, dtype),
+        "lin": nn.linear_init(generator, H, D, dtype=dtype),
+        "log_var": nn.linear_init(generator, H, D, dtype=dtype),
+        "amor_u": nn.linear_init(generator, H, K * D, dtype=dtype),
+        "amor_w": nn.linear_init(generator, H, K * D, dtype=dtype),
+        "amor_b": nn.linear_init(generator, H, K, dtype=dtype),
+    }
+    return nn.ParamTree(tree).to(resolve_device(device))
+
+
+def encoder_planar_lstm_apply(params, spec: EncoderPlanarLSTMSpec, x, a, mask):
+    """-> (mu, log_var, u, w, b): the posterior of `encoder_lstm_apply` and the amortised
+    flow parameters u (B, K, D, 1), w (B, K, 1, D), b (B, K, 1, 1) for K = num_flows."""
+    B, K, D = x.shape[1], spec.num_flows, spec.output_dim
+    y_in = torch.cat([x, a], dim=-1)
+    mask_in = torch.cat([mask, torch.ones_like(a)], dim=-1)
+    out = nn.lstm_scan(params["lstm"], y_in * mask_in, spec.hidden_dim, reverse=True)
+
+    mu = nn.linear(params["lin"], out)
+    log_var = nn.linear(params["log_var"], out)
+    u = nn.linear(params["amor_u"], out).reshape(B, K, D, 1)
+    w = nn.linear(params["amor_w"], out).reshape(B, K, 1, D)
+    b = nn.linear(params["amor_b"], out).reshape(B, K, 1, 1)
+    if spec.normalize:
+        mu = torch.exp(mu) / 10.0
+        log_var = log_var - 5.0
+    return mu, log_var, u, w, b
+
+
+def planar_reparameterize(encoder_out, num_flows: int, eps):
+    """z0 = mu + eps * std, through the planar flows, then the fixed exp(z - 5) positivity
+    layer, whose log-det sum(z - 5) joins the flows'.
+
+    `eps` is (B, D), or (mc, B, D) for mc draws at once (the flow parameters
+    broadcast). Returns (mu, log_var, z_final, log_det_j, z0).
+    """
+    mu, log_var, u, w, b = encoder_out
+    z0 = priors.gaussian_reparameterize(mu, log_var, eps)
+    z = z0
+    log_det_j = 0.0
+    for k in range(num_flows):
+        z, ldj = flows.planar_flow(z, u[:, k], w[:, k], b[:, k])
+        log_det_j = log_det_j + ldj
+    z_exp = torch.exp(z - 5.0)
+    log_det_j = log_det_j + torch.sum(z - 5.0, dim=-1)
+    return mu, log_var, z_exp, log_det_j, z0
+
+
+def planar_log_density(mu, log_var, z_final, log_det_j, z0):
+    """log q(z_final) = log q0(z0) - log|det J|."""
+    return priors.gaussian_log_density(mu, log_var, z0) - log_det_j
 
 
 class EncoderLSTMRealSpec(NamedTuple):

@@ -26,11 +26,12 @@ from hybridode.inference import load_checkpoint as j_load_checkpoint
 from hybridode.inference import save_checkpoint as j_save_checkpoint
 from hybridode.models import decoders as j_decoders
 from hybridode.models import encoders as j_encoders
-from hybridode_torch.cli.common import build_real_model
+from hybridode_torch.cli.common import build_real_model, build_sim_model
+from hybridode_torch.config import DataConfig
 from hybridode_torch.convert import params_from_jax, params_to_jax
 from hybridode_torch.data import RealCohort
 from hybridode_torch.inference import init_vi, load_checkpoint, make_optimizer, save_checkpoint
-from hybridode_torch.inference.elbo import VIModel, decode, encode, real_loss
+from hybridode_torch.inference.elbo import decode, encode, real_loss
 from hybridode_torch.models import decoders, encoders
 
 OBS, A, S, T, B, HID = 5, 1, 2, 12, 4, 7
@@ -212,14 +213,22 @@ def test_adam_trains_every_real_leaf_including_the_rate_constants(method):
 
 
 def test_flow_kind_is_refused():
-    _, m = _full_width("hybrid")
-    flow = VIModel("flow", m.encoder_spec, m.decoder_spec)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        init_vi(torch.Generator(), flow, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        encode(None, flow, None, None, None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        decode(None, flow, None, None)
+    """`kind="flow"` is no longer refused: `init_vi`, `encode` and `decode` run the flow posterior (LHM-NF)."""
+    m = build_sim_model("hybrid", DataConfig(obs_dim=OBS, latent_dim=6), flow=True, ode_method="rk4")
+    m = m._replace(decoder_spec=m.decoder_spec._replace(ode_step_size=0.125))
+    assert m.kind == "flow"
+    params = init_vi(torch.Generator().manual_seed(0), m, device="cpu")
+    assert {k.split(".")[1] for k, _ in params.named_parameters() if k.startswith("encoder.")} == {
+        "lstm", "lin", "log_var", "amor_u", "amor_w", "amor_b"}
+    rng = np.random.RandomState(0)
+    x, a = _t(rng.randn(15, B, OBS).astype(np.float32)), torch.zeros(15, B, A)
+    a[2] = 5.0  # one bolus a patient
+    with torch.no_grad():
+        out = encode(params, m, x, a, torch.ones_like(x))
+        assert [tuple(o.shape) for o in out] == [(B, 6), (B, 6), (B, 4, 6, 1), (B, 4, 1, 6), (B, 4, 1, 1)]
+        z = encoders.planar_reparameterize(out, 4, _t(rng.randn(B, 6).astype(np.float32)))[2]
+        x_hat, _ = decode(params, m, z, {"actions": a})
+    assert x_hat.shape == (15, B, OBS) and bool(torch.isfinite(x_hat).all())
 
 
 def test_cli_default_hybrid_solve_amplifies_rounding_at_init():
