@@ -69,12 +69,32 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    RK4. The kernel must launch exactly EVAL_LAUNCHES times on each RK4 path
    (one per chunk; the ensemble's neural member has no Roche field) and never
    on a DOPRI5 path.
+8. Lockstep: `create_data.main(["--which", "train", "--seed", "123", ...])` on
+   the GPU and on the CPU (1,300 patients, latent 6, obs 20, T=15: one float64
+   lockstep DOPRI5 of the cohort's ground truth), each file held against the
+   committed data_s123 cohort (`cohort_faults`: the arrays drawn only from
+   the RandomState byte for byte, latents within rtol 1e-5, atol 1e-6,
+   measurements within atol 1e-5), with its seconds and the solve's trial
+   and accepted steps. Then `run_simulation.run(..., lockstep=True)` as
+   `--method hybrid` at phase 5's width (one controller for the batch, on the
+   adjoint solver: max_steps 4096, max_record 1024), batch 50, one restart
+   of LOCKSTEP_ITERS iterations with validation every LOCKSTEP_TEST_FREQ,
+   then its `evaluate`, on the GPU and on the CPU from the same seed, curves
+   and metrics within LOCKSTEP_RTOL; the first training batch's trial,
+   accepted and recorded steps. On that batch, the `sim_loss` gradient with
+   the adjoint against backprop through the same lockstep solve
+   (`use_adjoint=False`), within ADJOINT_RTOL and ADJOINT_ATOL, each
+   backward timed. The RK4 kernel must not launch in this phase. One
+   lockstep training iteration is profiled at the end.
 
 Then the `profile` line: for each training iteration set aside above (the
-main path's, the real hybrid's at both step sizes, the flow's), its ATen
+main path's, the real hybrid's at both step sizes, the flow's, the lockstep
+hybrid's), its ATen
 calls, CUDA kernels, host launch calls and the share of its untraced wall
 time the GPU was busy under torch.profiler. It comes last because a trace
-with CUDA activity slows every later step of the process. The last lines are
+with CUDA activity slows every later step of the process. A `timing` line
+gives the seconds of the phases, of the profile line and of the whole
+script. The last lines are
 the `kernels` JSON (the RK4 kernel's launches on every path of the run beside
 the main path's `launches`), the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -129,6 +149,14 @@ REAL_OTHER_METHODS = ("neural", "2nd", "expert", "tlstm", "gruode")
 FLOW_ITERS, FLOW_TEST_FREQ, MEMBER_ITERS, RESIDUAL_ITERS = 4, 2, 2, 2
 SIM_MORE_RTOL = 1e-3
 HORIZON_STEPS = 10
+# Phase 8: the committed cohort that `create_data --which train --seed 123` reproduces; the arrays drawn only from the
+# RandomState (byte for byte); the lockstep training run (LOCKSTEP_ITERS iterations, validation every
+# LOCKSTEP_TEST_FREQ) and its GPU-vs-CPU agreement; the adjoint's gradient against backprop through the same lockstep
+# solve, elementwise |a - b| <= ADJOINT_ATOL + ADJOINT_RTOL |b| (tests/test_models.py's tolerance).
+DRAWN = ("output_coef", "ml_coef", "dose_time", "dose_amount", "actions", "masks")
+LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ = 2, 2
+LOCKSTEP_RTOL = 1e-3
+ADJOINT_RTOL, ADJOINT_ATOL = 2e-3, 1e-5
 KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None), (1000, 8, None), (7, 6, None),
                 (2550, 6, 1.7)]
 
@@ -333,16 +361,13 @@ def _aten_counter():
     return Count()
 
 
-def _first_batch_steps(model, seed, device="cuda"):
-    """Step counts of iteration 1's decode: run()'s first draws (init, the loop's mini-batch seed, the ELBO's
-    eps) replayed from the seed, on the first training batch (chunk 1 % train_chunk, as the loop takes it)."""
+def _first_batch(model, seed, device="cuda"):
+    """run()'s first draws (init, the loop's mini-batch seed, the ELBO's eps) replayed from the seed, and the first
+    training batch (chunk 1 % train_chunk, as the loop takes it); -> (params, eps, eps_kl, batch)."""
     import torch
 
     from hybridode_torch.data import SyntheticCohort
-    from hybridode_torch.fields import doses_from_actions, roche_field
     from hybridode_torch.inference import elbo, init_vi
-    from hybridode_torch.models import priors
-    from hybridode_torch.solvers import odeint_dopri5
 
     gen = torch.Generator().manual_seed(seed)
     params = init_vi(gen, model, device=device)
@@ -350,7 +375,19 @@ def _first_batch_steps(model, seed, device="cuda"):
     eps, eps_kl = elbo.draw_noise(model, TRAIN_BATCH, gen, device)
     cohort = SyntheticCohort.load(COHORT, device=device)
     cohort.set_train_size(1000)
-    batch = cohort.get_split("train", TRAIN_BATCH, 1 % max(1, cohort.train_size // TRAIN_BATCH))
+    return params, eps, eps_kl, cohort.get_split("train", TRAIN_BATCH, 1 % max(1, cohort.train_size // TRAIN_BATCH))
+
+
+def _first_batch_steps(model, seed, device="cuda"):
+    """Step counts of iteration 1's per-patient decode (see `_first_batch`)."""
+    import torch
+
+    from hybridode_torch.fields import doses_from_actions, roche_field
+    from hybridode_torch.inference import elbo
+    from hybridode_torch.models import priors
+    from hybridode_torch.solvers import odeint_dopri5
+
+    params, eps, eps_kl, batch = _first_batch(model, seed, device)
     spec = model.decoder_spec
     with torch.no_grad():
         loss = elbo.sim_loss(params, model, batch, eps=eps, eps_kl=eps_kl).item()
@@ -371,9 +408,11 @@ def _traced(fn, activities=("CPU", "CUDA")):
     """fn() under torch.profiler; -> (its result, the sorted (start, end) microseconds of its device kernels, its
     kernel launch calls).
 
-    The trace's events hold one another in reference cycles (millions of
-    objects for a training step) that outlive the profiler until a full
-    collection, so they are collected here.
+    It reads the profiler's raw events: building its `FunctionEvent` tree
+    (`prof.events()`) in Python took most of the script's time once a
+    lockstep training step (~1.6 million events) was traced. The
+    trace holds its objects in reference cycles that outlive the profiler
+    until a full collection, so they are collected here.
     """
     import gc
 
@@ -382,10 +421,10 @@ def _traced(fn, activities=("CPU", "CUDA")):
 
     with profile(activities=[getattr(ProfilerActivity, a) for a in activities]) as prof:
         out = fn()
-    events = prof.events()
-    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    events = prof.profiler.kineto_results.events()
+    kernels = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3) for e in events
+                     if e.device_type() == torch.autograd.DeviceType.CUDA)
+    launches = sum(1 for e in events if e.name() in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     del prof, events
     gc.collect()
     return out, kernels, launches
@@ -761,6 +800,143 @@ def phase_sim_more(args, probes):
     return line
 
 
+def cohort_faults(got: dict, want: dict) -> list:
+    """A generated cohort file's state against the committed one's; -> what disagrees (empty when all agree)."""
+    import numpy as np
+
+    faults = [f"{k} is missing" for k in sorted(set(want) - set(got))]
+    for k in DRAWN:
+        if k in got and not (got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+                             and got[k].tobytes() == want[k].tobytes()):
+            faults.append(f"{k} is not byte-equal to the committed file's")
+    for k, rtol, atol in (("latents", 1e-5, 1e-6), ("measurements", 0.0, 1e-5)):
+        if k not in got:
+            continue
+        if got[k].shape != want[k].shape:
+            faults.append(f"{k}: shape {got[k].shape}, the committed file's {want[k].shape}")
+            continue
+        diff = np.abs(got[k].astype(np.float64) - want[k].astype(np.float64))
+        bad = ~(diff <= atol + rtol * np.abs(want[k].astype(np.float64)))
+        if bad.any():
+            faults.append(f"{k}: {int(bad.sum())} entries beyond rtol={rtol} atol={atol} (max abs diff {diff.max()})")
+    return faults
+
+
+def _generate(device, out):
+    """`create_data --which train --seed 123` on `device`, its file held against data_s123's."""
+    from hybridode_torch.cli import create_data
+    from hybridode_torch.utils.pickling import load_pickle
+
+    t = time.perf_counter()
+    ((path, cohort),) = create_data.main(["--which", "train", "--seed", "123", "--out", out]
+                                         + (["--device", "c"] if device == "cpu" else [])).items()
+    seconds = time.perf_counter() - t  # the latents were read back to the host before the file was written
+    st = cohort.solve_stats
+    return dict(seconds=seconds, trial_steps=int(st.n_steps), accepted_steps=int(st.n_accepted),
+                success=bool(st.success), faults=cohort_faults(load_pickle(path)["state"], load_pickle(COHORT)["state"]))
+
+
+def _first_batch_lockstep_steps(model, params, eps, batch):
+    """Trial, accepted and recorded steps of iteration 1's lockstep decode on the adjoint solver, under grad."""
+    from hybridode_torch.fields import doses_from_actions, roche_field
+    from hybridode_torch.inference import elbo
+    from hybridode_torch.models import priors
+    from hybridode_torch.solvers import odeint_dopri5_adjoint
+
+    spec = model.decoder_spec
+    mu, log_var = elbo.encode(params, model, batch["measurements"], batch["actions"], batch["masks"])
+    z = priors.gaussian_reparameterize(mu, log_var, eps)
+    _, st = odeint_dopri5_adjoint(roche_field, z, spec.ts, (params["decoder"]["ode"],
+                                  doses_from_actions(batch["actions"], spec.step_size)), rtol=spec.rtol,
+                                  atol=spec.atol, max_steps=spec.max_steps, max_record=spec.max_record)
+    return dict(trial=int(st.n_steps), accepted=int(st.n_accepted), recorded=min(int(st.n_accepted), spec.max_record),
+                recorded_all=bool(st.recorded_all), success=bool(st.success), z_requires_grad=z.requires_grad)
+
+
+def _adjoint_vs_backprop(model, params, eps, eps_kl, batch):
+    """One batch's `sim_loss` gradient with the adjoint and with backprop through the same lockstep solve."""
+    import torch
+
+    from hybridode_torch.inference import elbo
+
+    runs = {}
+    backprop = model._replace(decoder_spec=model.decoder_spec._replace(use_adjoint=False))
+    for name, m in (("adjoint", model), ("backprop", backprop)):
+        params.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = elbo.sim_loss(params, m, batch, eps=eps, eps_kl=eps_kl)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = (dict(loss=loss.item(), forward_s=t1 - t, backward_s=time.perf_counter() - t1),
+                      {n: p.grad.clone() for n, p in params.named_parameters() if p.grad is not None})
+    (adj, g_adj), (bp, g_bp) = runs["adjoint"], runs["backprop"]
+    leaves = {}
+    for n, b in g_bp.items():
+        a = g_adj.get(n, torch.full_like(b, math.nan))
+        excess = (a - b).abs() - (ADJOINT_ATOL + ADJOINT_RTOL * b.abs())
+        leaves[n] = dict(max_abs_diff=(a - b).abs().max().item(), max_abs=b.abs().max().item(),
+                         ok=bool((excess <= 0).all()))
+    return dict(adjoint=adj, backprop=bp, leaves=leaves, same_leaves=sorted(g_adj) == sorted(g_bp),
+                ok=sorted(g_adj) == sorted(g_bp) and all(v["ok"] for v in leaves.values()))
+
+
+def phase_lockstep(args, probes):
+    """Phase 8: create_data against data_s123 on both devices, the lockstep CLI on both, the adjoint against
+    backprop on the card."""
+    import torch
+
+    from hybridode_torch.cli import run_simulation
+    from hybridode_torch.ops import roche_rk4
+
+    t0 = time.perf_counter()
+    line = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        roche_rk4.roche_rk4_trajectory.launches = 0
+        gpu = _generate("cuda", os.path.join(tmp, "gen_gpu"))
+        torch.cuda.synchronize()
+        launches = roche_rk4.roche_rk4_trajectory.launches
+        line["create_data"] = dict(gpu=gpu, cpu=_generate("cpu", os.path.join(tmp, "gen_cpu")),
+                                   roche_rk4_launches=launches)
+
+        runs, kw = {}, dict(seed=args.seed, elbo=True, eval_only=False, init_path=None, model_method="hybrid",
+                            optim_config=_optim(LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ), lockstep=True)
+        roche_rk4.roche_rk4_trajectory.launches = 0
+        runs["cuda"], params, model, gpu_scores = _logged_run(run_simulation, "cuda", os.path.join(tmp, "gpu"), **kw)
+        torch.cuda.synchronize()
+        launches = roche_rk4.roche_rk4_trajectory.launches
+        runs["cpu"], _, _, cpu_scores = _logged_run(run_simulation, "cpu", os.path.join(tmp, "cpu"), **kw)
+    first = _first_batch(model, args.seed)
+    steps = _first_batch_lockstep_steps(model, first[0], first[1], first[3])
+    line["adjoint_vs_backprop"] = _adjoint_vs_backprop(model, *first)
+    probes["lockstep"] = _profile_probe(params, model, first[3], args.seed)
+    line["train"] = dict(**_held_pair(runs, gpu_scores, cpu_scores), first_batch_steps=steps,
+                         roche_rk4_launches=launches)
+    line["seconds"] = time.perf_counter() - t0
+    print("lockstep " + json.dumps(line), flush=True)
+
+    faults = []
+    for device in ("gpu", "cpu"):
+        gen = line["create_data"][device]
+        faults += [f"create_data on the {device}: {f}" for f in gen["faults"]]
+        if not gen["success"]:
+            faults.append(f"create_data on the {device}: the ground-truth solve did not finish")
+    if not (steps["success"] and steps["recorded_all"] and steps["z_requires_grad"]):
+        faults.append(f"the first batch's lockstep decode: {steps}")
+    if not line["adjoint_vs_backprop"]["ok"]:
+        faults.append(f"adjoint against backprop beyond rtol={ADJOINT_RTOL} atol={ADJOINT_ATOL}: "
+                      f"{line['adjoint_vs_backprop']['leaves']}")
+    for name in ("create_data", "train"):
+        if line[name]["roche_rk4_launches"]:
+            faults.append(f"{name}: the RK4 kernel was launched {line[name]['roche_rk4_launches']} times")
+    if faults:
+        raise SystemExit("; ".join(faults))
+    _check_pair(line["train"], LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ, LOCKSTEP_RTOL)
+    return line
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ckpt", default=None, help="checkpoint path prefix written by either package")
@@ -777,6 +953,7 @@ def main(argv=None) -> int:
     from hybridode_torch.data import SyntheticCohort
     from hybridode_torch.ops import build, roche_rk4
 
+    start = time.perf_counter()
     smi = nvidia_smi()
     print("env " + json.dumps(dict(nvidia_smi=smi, device=torch.cuda.get_device_name(0),
                                    torch=torch.__version__, cuda=torch.version.cuda,
@@ -798,7 +975,11 @@ def main(argv=None) -> int:
     train = phase_train(args, probes)
     real = phase_real(args, probes)
     more = phase_sim_more(args, probes)
+    lockstep = phase_lockstep(args, probes)
+    phases_s = time.perf_counter() - start
     print("profile " + json.dumps({name: trace() for name, trace in probes.items()}), flush=True)
+    total_s = time.perf_counter() - start
+    print("timing " + json.dumps(dict(phases_s=phases_s, profile_s=total_s - phases_s, total_s=total_s)), flush=True)
 
     main_row = rows[0]  # B=2550: the one launch of each chunk of evaluate
     print(json.dumps({"kernels": [dict(
@@ -813,7 +994,9 @@ def main(argv=None) -> int:
             run_simulation_members=more["members"]["roche_rk4_launches"],
             run_simulation_ensemble=more["ensemble"]["roche_rk4_launches"],
             run_simulation_residual=more["residual"]["roche_rk4_launches"],
-            run_eval=more["run_eval"]["roche_rk4_launches"]),
+            run_eval=more["run_eval"]["roche_rk4_launches"],
+            run_simulation_lockstep=lockstep["train"]["roche_rk4_launches"],
+            create_data=lockstep["create_data"]["roche_rk4_launches"]),
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"], device_ms=main_row["device_ms"],
         plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

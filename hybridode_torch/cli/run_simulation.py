@@ -15,8 +15,11 @@ flag for interface parity and ignores it). All noise comes from one CPU
 initialisation, its training and the final evaluation, so a CPU run and a
 GPU run from one seed see the same weights and the same noise.
 
-Not ported: `--restart_mode vmap|shard`, `--dp` above 1 and `--eval_mesh`
-(ROADMAP.md, queue 1, item 10), `--step_control lockstep` (item 9).
+`--step_control lockstep` gives the Roche decoder one DOPRI5 controller for
+the whole batch, on the adjoint solver (`solvers/adjoint.py`).
+
+Not ported: `--restart_mode vmap` (ROADMAP.md, queue 1, item 2),
+`--restart_mode shard`, `--dp` above 1 and `--eval_mesh` (item 3).
 """
 
 from __future__ import annotations
@@ -37,15 +40,14 @@ from . import common
 SCORE_NAMES = ("rmse_z0", "rmse_z0_sd", "cprs_z0", "rmse_x", "rmse_x_sd", "cprs_x")
 
 
-def _refuse_unported(dp_devices, eval_mesh, lockstep, restart_mode):
+def _refuse_unported(dp_devices, eval_mesh, restart_mode):
     if restart_mode != "seq":
-        raise NotImplementedError(f"--restart_mode={restart_mode} is not ported yet (ROADMAP.md, queue 1, item 10)")
+        item = 2 if restart_mode == "vmap" else 3
+        raise NotImplementedError(f"--restart_mode={restart_mode} is not ported yet (ROADMAP.md, queue 1, item {item})")
     if dp_devices is not None and dp_devices > 1:
-        raise NotImplementedError("--dp above 1 is not ported yet (ROADMAP.md, queue 1, item 10)")
+        raise NotImplementedError("--dp above 1 is not ported yet (ROADMAP.md, queue 1, item 3)")
     if eval_mesh is not None:
-        raise NotImplementedError("--eval_mesh is not ported yet (ROADMAP.md, queue 1, item 10)")
-    if lockstep:
-        raise NotImplementedError("--step_control lockstep is not ported yet (ROADMAP.md, queue 1, item 9)")
+        raise NotImplementedError("--eval_mesh is not ported yet (ROADMAP.md, queue 1, item 3)")
 
 
 def run(
@@ -79,7 +81,7 @@ def run(
     accepted for signature parity.
     """
     device = resolve_device(device)
-    _refuse_unported(dp_devices, eval_mesh, lockstep, restart_mode)
+    _refuse_unported(dp_devices, eval_mesh, restart_mode)
     generator = torch.Generator().manual_seed(seed)
 
     dg = SyntheticCohort.load(data_path, device=device)
@@ -181,7 +183,8 @@ def build_parser():
                         help="write iter,val_loss,train_loss CSV (exp_lhm.csv format)")
     parser.add_argument("--events_path", default=None, type=str, help="append JSONL training events")
     parser.add_argument("--step_control", choices=["per_sample", "lockstep"], default="per_sample", type=str,
-                        help="adaptive step controller granularity: per-sample (default) or lockstep (not ported)")
+                        help="adaptive step controller granularity: per-sample (default) or lockstep (one "
+                             "controller for the batch, on the adjoint solver)")
     parser.add_argument("--dp", default=0, type=int, help="data-parallel device count (above 1: not ported)")
     parser.add_argument("--restart_mode", choices=["seq", "vmap", "shard"], default="seq", type=str,
                         help="seq: one restart after another (vmap, shard: not ported)")

@@ -12,7 +12,7 @@ package loads.
 
 It runs on the GPU; `--device c` asks for the CPU. All noise comes from one
 CPU `torch.Generator` seeded with `--seed`. Not ported: `--restart_mode
-vmap|shard` (ROADMAP.md, queue 1, item 10).
+vmap` (ROADMAP.md, queue 1, item 2) and `--restart_mode shard` (item 3).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def run(seed, eval_only, data_path, sample, data_config, path, optim_config, eva
     accepted for signature parity.
     """
     device = resolve_device(device)
-    _refuse_unported(None, None, False, restart_mode)
+    _refuse_unported(None, None, restart_mode)
     generator = torch.Generator().manual_seed(seed)
 
     dg = SyntheticCohort.load(data_path, device=device)

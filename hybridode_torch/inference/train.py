@@ -100,9 +100,9 @@ def variational_training_loop(
     """
     if fused:
         raise NotImplementedError("the fused whole-restart training program is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 10); the host loop is its counterpart")
+                                  "(ROADMAP.md, queue 1, item 2); the host loop is its counterpart")
     if dp_devices is not None and dp_devices > 1:
-        raise NotImplementedError("data-parallel training is not ported yet (ROADMAP.md, queue 1, item 10)")
+        raise NotImplementedError("data-parallel training is not ported yet (ROADMAP.md, queue 1, item 3)")
     device = next(params.parameters()).device
     optimizer = make_optimizer(lr, params, train_expert)
     eval_loss = make_eval_loss(model, val_criterion, val_t0)

@@ -11,22 +11,21 @@ Counterpart of hybridode/models/decoders.py:44-363:
 * the real-data discrete benchmarks `tlstm` and `gruode` (`RealBenchmarkSpec`,
   `init_real_benchmark`, `gru_ode_cell`, `real_benchmark_apply`).
 
-The simulation decoder has three solves:
-
-Three solves:
+The simulation decoder has four solves:
 
 * DOPRI5 with per-patient step control (`per_sample_control=True`, the CLI's
   default for the Roche field): one `odeint_dopri5(per_row=True)` over the
   batch, the counterpart of JAX's `vmap` of one solve per patient.
+* DOPRI5 on the adjoint solver (`use_adjoint=True`; the CLI's `--step_control
+  lockstep` for the Roche field): `odeint_dopri5_adjoint` with one controller
+  for the whole `(B, D)` batch, or per row with `per_sample_control`, its
+  backward replaying only the accepted steps (at most `max_record` of them).
 * The RK4 solve of the Roche field runs the CUDA kernel `roche_rk4_trajectory`
   when the configuration is the one that kernel computes: `method == "rk4"`,
   the Roche field without ablation, `latent_dim <= 8`, one dose per patient,
   a CUDA state and no gradient needed.
 * Every other configuration solves with `odeint` in plain PyTorch (DOPRI5 in
   lockstep, or a fixed-step method).
-
-The lockstep DOPRI5 of the JAX package's `--step_control lockstep`
-(`use_adjoint=True`, a while-loop adjoint solver) is not ported.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ from ..fields import (
     roche_real_field,
 )
 from ..ops.roche_rk4 import MAX_DIM, roche_rk4_trajectory
-from ..solvers import FIXED_METHODS, odeint, odeint_dopri5
+from ..solvers import FIXED_METHODS, odeint, odeint_dopri5, odeint_dopri5_adjoint
 from . import nn
 
 
@@ -119,9 +118,10 @@ def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
     ode = params["ode"]
     field = roche_field if spec.roche else neural_field
     if spec.method == "dopri5" and spec.use_adjoint:
-        raise NotImplementedError("lockstep DOPRI5 on the adjoint solver (--step_control lockstep) is not ported "
-                                  "yet (ROADMAP.md, queue 1, item 9)")
-    if spec.method == "dopri5" and spec.per_sample_control:
+        h, _ = odeint_dopri5_adjoint(field, init, ts, (ode, ctx), rtol=spec.rtol, atol=spec.atol,
+                                     max_steps=spec.max_steps, max_record=spec.max_record,
+                                     per_row=spec.per_sample_control)
+    elif spec.method == "dopri5" and spec.per_sample_control:
         h, _ = odeint_dopri5(field, init, ts, (ode, ctx), rtol=spec.rtol, atol=spec.atol,
                              max_steps=spec.max_steps, per_row=True)
     elif _runs_kernel(spec, ode, init, ctx):

@@ -12,6 +12,8 @@ from typing import Any
 
 import torch
 
+from .adjoint import odeint_dopri5_adjoint
+from .calibrate import calibrate_trial_budget
 from .dopri5 import Dopri5Stats, odeint_dopri5
 from .fixed_step import odeint_fixed
 
@@ -54,6 +56,8 @@ __all__ = [
     "odeint",
     "odeint_with_stats",
     "odeint_dopri5",
+    "odeint_dopri5_adjoint",
+    "calibrate_trial_budget",
     "odeint_fixed",
     "Dopri5Stats",
     "ADAPTIVE_METHODS",

@@ -24,7 +24,9 @@ The JAX function runs a bounded `lax.scan` of masked trial steps in chunks of
 runs in a Python loop, and `finished` is read on the host once a chunk (one
 sync per 64 trial steps). Rows that have finished are frozen by the masks, so
 stopping early gives exactly what the full budget of `ceil(max_steps / 64) *
-64` trial steps gives.
+64` trial steps gives. The pieces of a solve (`start`, `trial_step`,
+`integrate`, `finish`, `replay_step`) are the adjoint solver's too
+(`adjoint.py`), so that it records and replays this very arithmetic.
 
 Gradients flow through every trial step's masked selects, as through JAX's
 scan (discretize-then-optimize). The initial step, the error norm and the
@@ -42,7 +44,7 @@ output come to some 0.25 MB a step, tens of MB a solve.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,6 +65,9 @@ class Dopri5Stats(NamedTuple):
     n_steps: torch.Tensor  # trial steps taken (per row with per_row=True)
     n_accepted: torch.Tensor  # accepted steps
     success: torch.Tensor  # reached ts[-1] within the budget, all outputs finite
+    # False only on the adjoint solver, when a solve accepted more steps than
+    # its `max_record` buffer holds (its gradients then leave them out).
+    recorded_all: Any = True
 
 
 class _Tableau(NamedTuple):
@@ -162,6 +167,135 @@ def _next_h(h, norm, accept):
     return h * factor
 
 
+def _grid_theta(ts_b, t, h):
+    """Each grid point's place in the step [t, t + h], clamped to [0, 1]."""
+    return torch.clamp((ts_b - t) / torch.clamp(h, min=1e-30), 0.0, 1.0)
+
+
+class Solve(NamedTuple):
+    """What every trial step of one solve shares."""
+
+    field: Field
+    args: Any
+    ts_b: torch.Tensor  # the grid, shaped (T, 1, ..., 1) against (T, *y.shape)
+    t_final: torch.Tensor
+    tab: _Tableau
+    floors: tuple
+    atol: float
+    barriers: Optional[torch.Tensor]
+    per_row: bool
+
+
+def start(field: Field, y0, ts, args, rtol, atol, barriers=None, per_row=False):
+    """Set up a solve -> (its `Solve`, the carry (t, y, f, h, out, n_trial, n_acc, finished) before the first step).
+
+    The first field evaluation keeps its graph; the initial step size is
+    computed without gradient. Raises when the field's output does not have
+    the state's shape (a per-row argument of shape (B,) against a (B, 1)
+    time or a (B, 1) state broadcasts to (B, B)).
+    """
+    dtype, device = y0.dtype, y0.device
+    ts = torch.as_tensor(ts, dtype=dtype, device=device)
+    row_shape = tuple(y0.shape[:-1]) + (1,) if per_row else ()
+    if barriers is not None:
+        barriers = torch.as_tensor(barriers, dtype=dtype, device=device)
+    solve = Solve(field, args, ts.reshape((-1,) + (1,) * y0.ndim), ts[-1], _Tableau.make(dtype, device),
+                  _noise_floor(dtype, rtol), atol, barriers, per_row)
+
+    t = ts[0].expand(row_shape)
+    f = field(t, y0, args)
+    if f.shape != y0.shape:
+        raise ValueError(f"the field returned shape {tuple(f.shape)} for a state of shape {tuple(y0.shape)}; "
+                         "per-row arguments must broadcast against the (B, 1) time or the (B, D) state")
+    with torch.no_grad():
+        h = _initial_step(field, t, y0, f.detach(), rtol, atol, args, per_row)
+
+    out = torch.cat([y0[None], torch.full((ts.shape[0] - 1,) + tuple(y0.shape), float("nan"), dtype=dtype,
+                                          device=device)])
+    counts = [torch.zeros(row_shape, dtype=torch.int32, device=device) for _ in range(2)]
+    return solve, (t, y0, f, h, out, *counts, torch.zeros(row_shape, dtype=torch.bool, device=device))
+
+
+def trial_step(s: Solve, carry, budget: Optional[int] = None):
+    """One masked trial step -> (the next carry, (t, h_eff, t_new, y, take) of this step).
+
+    A row is alive until it finishes or, with a `budget`, has taken that
+    many trial steps; `take` marks the rows that accepted a step while alive.
+    """
+    t, y, f, h, out, n_trial, n_acc, finished = carry
+    if s.barriers is not None:
+        # The next barrier strictly ahead of t (a margin so that a step
+        # starting on a barrier is not clipped to zero).
+        ahead = s.barriers > t + 1e-6
+        next_barrier = torch.amin(torch.where(ahead, s.barriers, float("inf")), dim=-1, keepdim=s.per_row)
+        h = torch.minimum(h, torch.clamp(next_barrier - t, min=1e-6))
+
+    last_step = h >= s.t_final - t
+    h_eff = torch.where(last_step, s.t_final - t, h)
+    y1, f1, err, k = _dopri5_step(s.field, t, y, f, h_eff, s.args, s.tab)
+    with torch.no_grad():
+        k_mag = torch.maximum(torch.abs(k[0]), torch.abs(k[6]))
+        norm = _error_norm(err, y, y1, s.atol, s.floors, h_eff, k_mag, s.per_row)
+        accept = (norm <= 1.0) & torch.isfinite(norm)
+        t_new = torch.where(last_step, s.t_final, t + h_eff)
+        # Every grid point this step crosses, from the dense polynomial.
+        theta = _grid_theta(s.ts_b, t, h_eff)
+        alive = ~finished if budget is None else ~finished & (n_trial < budget)
+        do_fill = (s.ts_b > t) & (s.ts_b <= t_new) & accept & alive
+        h_next = _next_h(h_eff, norm, accept)
+    out = torch.where(do_fill, _dense_eval(_dense_coeffs(y, y1, h_eff, k, s.tab), theta), out)
+
+    take = accept & alive
+    carry = (
+        torch.where(take, t_new, t),
+        torch.where(take, y1, y),
+        torch.where(take, f1, f),
+        torch.where(alive, h_next, h),
+        out,
+        n_trial + alive.to(torch.int32),
+        n_acc + take.to(torch.int32),
+        finished | (take & last_step),
+    )
+    return carry, (t, h_eff, t_new, y, take)
+
+
+def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_step=None):
+    """Trial steps in chunks of 64 until every row is done -> the last carry.
+
+    A row is done when it has finished or spent its `budget`. Done rows are
+    frozen by the masks, so stopping at a chunk boundary gives what the full
+    ceil(max_steps / 64) * 64 steps give. `on_step` gets each step's record.
+    """
+    for _ in range(max(1, -(-max_steps // _CHUNK_SIZE))):
+        done = carry[-1] if budget is None else carry[-1] | (carry[5] >= budget)
+        if bool(done.all()):  # the one host sync of a chunk
+            break
+        for _ in range(_CHUNK_SIZE):
+            carry, rec = trial_step(s, carry, budget)
+            if on_step is not None:
+                on_step(rec)
+    return carry
+
+
+def finish(s: Solve, carry):
+    """-> (ys, stats) of a finished carry; per-row stats have the rows' shape."""
+    _, _, _, _, out, n_trial, n_acc, finished = carry
+    finite = torch.isfinite(out)
+    if s.per_row:
+        n_trial, n_acc, finished = n_trial[..., 0], n_acc[..., 0], finished[..., 0]
+        finite = finite.all(dim=-1).all(dim=0)
+    else:
+        finite = finite.all()
+    return out, Dopri5Stats(n_steps=n_trial, n_accepted=n_acc, success=finished & finite)
+
+
+def replay_step(s: Solve, t, y, h):
+    """An accepted step recomputed from its start, its first stage included -> (y1, its dense output on the grid)."""
+    f0 = s.field(t, y, s.args)
+    y1, _, _, k = _dopri5_step(s.field, t, y, f0, h, s.args, s.tab)
+    return y1, _dense_eval(_dense_coeffs(y, y1, h, k, s.tab), _grid_theta(s.ts_b, t, h))
+
+
 def odeint_dopri5(
     field: Field,
     y0: torch.Tensor,
@@ -182,75 +316,5 @@ def odeint_dopri5(
     on one), for forcing with jumps at known times. With `per_row=True` every
     row of `y0` (all axes but the last) is its own solve.
     """
-    dtype, device = y0.dtype, y0.device
-    tab = _Tableau.make(dtype, device)
-    floors = _noise_floor(dtype, rtol)
-    ts = torch.as_tensor(ts, dtype=dtype, device=device)
-    t_final = ts[-1]
-    ts_b = ts.reshape((-1,) + (1,) * y0.ndim)
-    row_shape = tuple(y0.shape[:-1]) + (1,) if per_row else ()
-    if barriers is not None:
-        barriers = torch.as_tensor(barriers, dtype=dtype, device=device)
-
-    t = ts[0].expand(row_shape)
-    f = field(t, y0, args)
-    with torch.no_grad():
-        h = _initial_step(field, t, y0, f.detach(), rtol, atol, args, per_row)
-
-    out = torch.cat([y0[None], torch.full((ts.shape[0] - 1,) + tuple(y0.shape), float("nan"), dtype=dtype,
-                                          device=device)])
-    y = y0
-    n_trial = torch.zeros(row_shape, dtype=torch.int32, device=device)
-    n_acc = torch.zeros(row_shape, dtype=torch.int32, device=device)
-    finished = torch.zeros(row_shape, dtype=torch.bool, device=device)
-
-    def trial_step(t, y, f, h, out, n_trial, n_acc, finished):
-        if barriers is not None:
-            # The next barrier strictly ahead of t (a margin so that a step
-            # starting on a barrier is not clipped to zero).
-            ahead = barriers > t + 1e-6
-            next_barrier = torch.amin(torch.where(ahead, barriers, float("inf")), dim=-1, keepdim=per_row)
-            h = torch.minimum(h, torch.clamp(next_barrier - t, min=1e-6))
-
-        last_step = h >= t_final - t
-        h_eff = torch.where(last_step, t_final - t, h)
-        y1, f1, err, k = _dopri5_step(field, t, y, f, h_eff, args, tab)
-        with torch.no_grad():
-            k_mag = torch.maximum(torch.abs(k[0]), torch.abs(k[6]))
-            norm = _error_norm(err, y, y1, atol, floors, h_eff, k_mag, per_row)
-            accept = (norm <= 1.0) & torch.isfinite(norm)
-            t_new = torch.where(last_step, t_final, t + h_eff)
-            # Every grid point this step crosses, from the dense polynomial.
-            theta = torch.clamp((ts_b - t) / torch.clamp(h_eff, min=1e-30), 0.0, 1.0)
-            do_fill = (ts_b > t) & (ts_b <= t_new) & accept & ~finished
-            h_next = _next_h(h_eff, norm, accept)
-        out = torch.where(do_fill, _dense_eval(_dense_coeffs(y, y1, h_eff, k, tab), theta), out)
-
-        alive = ~finished
-        take = accept & alive
-        return (
-            torch.where(take, t_new, t),
-            torch.where(take, y1, y),
-            torch.where(take, f1, f),
-            torch.where(alive, h_next, h),
-            out,
-            n_trial + alive.to(torch.int32),
-            n_acc + take.to(torch.int32),
-            finished | (take & last_step),
-        )
-
-    carry = (t, y, f, h, out, n_trial, n_acc, finished)
-    for _ in range(max(1, -(-max_steps // _CHUNK_SIZE))):
-        if bool(carry[-1].all()):  # the one host sync of a chunk
-            break
-        for _ in range(_CHUNK_SIZE):
-            carry = trial_step(*carry)
-    _, _, _, _, out, n_trial, n_acc, finished = carry
-
-    finite = torch.isfinite(out)
-    if per_row:
-        n_trial, n_acc, finished = n_trial[..., 0], n_acc[..., 0], finished[..., 0]
-        finite = finite.all(dim=-1).all(dim=0)
-    else:
-        finite = finite.all()
-    return out, Dopri5Stats(n_steps=n_trial, n_accepted=n_acc, success=finished & finite)
+    s, carry = start(field, y0, ts, args, rtol, atol, barriers, per_row)
+    return finish(s, integrate(s, carry, max_steps))

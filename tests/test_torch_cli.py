@@ -108,11 +108,10 @@ def test_main_parses_the_reference_flags(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--restart_mode", "vmap"], "item 10"),
-    (["--restart_mode", "shard"], "item 10"),
-    (["--dp", "2"], "item 10"),
-    (["--eval_mesh", "4x2"], "item 10"),
-    (["--step_control", "lockstep"], "item 9"),
+    (["--restart_mode", "vmap"], "item 2"),
+    (["--restart_mode", "shard"], "item 3"),
+    (["--dp", "2"], "item 3"),
+    (["--eval_mesh", "4x2"], "item 3"),
 ])
 def test_unported_flags_raise(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):

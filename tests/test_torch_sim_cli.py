@@ -120,7 +120,7 @@ def test_run_simulation_flow_prints_the_contract_and_jax_loads_its_checkpoint(sm
 
 @pytest.mark.parametrize("mode", ["vmap", "shard"])
 def test_run_simulation_flow_refuses_unported_restart_modes(small_data, tmp_path, mode):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 2" if mode == "vmap" else "item 3"):
         run_simulation_flow.main(["--device", "c", "--data_path", small_data, "--path", str(tmp_path) + "/",
                                   "--restart_mode", mode])
     assert not list(tmp_path.iterdir())
