@@ -86,6 +86,32 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    (`use_adjoint=False`), within ADJOINT_RTOL and ADJOINT_ATOL, each
    backward timed. The RK4 kernel must not launch in this phase. One
    lockstep training iteration is profiled at the end.
+9. Fused, in a process of its own: the fused training loop
+   (`inference/fused.py`: the loop's state on the device, one host read per
+   validation window, on the GPU the step and the validation as CUDA graphs)
+   through `run_simulation.run` as `--method hybrid` at phase 5's width,
+   batch 50, one restart of FUSED_ITERS iterations with validation every
+   FUSED_TEST_FREQ, three ways in this call: GPU fused (captured), CPU fused,
+   and GPU host loop (`HYBRIDODE_FUSED=0`). Each run's window seconds (a
+   window: FUSED_TEST_FREQ steps and one validation; on the GPU the first
+   holds the warm-ups and captures, the second is all graph replays) and
+   seconds per iteration of the last window, the graphs' capture seconds
+   (capture and instantiation together), and the GPU fused curve's first
+   validation against the CPU's and the GPU host loop's within TRAIN_RTOL
+   (over 20 iterations float32 differences grow chaotically in every loop:
+   the host loop's own GPU and CPU runs end 2 % apart, so later rows and the
+   metrics are reported, not held). The captured step's graph: its nodes,
+   capture and instantiation seconds, one replay's device and wall
+   milliseconds. The real hybrid captured at REAL_HELD_STEP_DIV steps an hour
+   against the CPU within REAL_RTOL. `--restart_mode vmap` with
+   FUSED_RESTARTS restarts (VMAP_ITERS iterations, validation every
+   VMAP_TEST_FREQ) against `seq` from the same seed: its seconds against the
+   sequential restarts', its best loss within FUSED_BEST_RTOL and its
+   checkpoint's iteration equal. The RK4 kernel must launch 0 times on every
+   fused path.
+
+Phases 5-8 run the host loop (`HYBRIDODE_FUSED=0`), so that their numbers
+stay comparable with the runs before the fused loop.
 
 Then the `profile` line: for each training iteration set aside above (the
 main path's, the real hybrid's at both step sizes, the flow's, the lockstep
@@ -103,6 +129,7 @@ the main path's `launches`), the nvidia-smi line and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -157,6 +184,13 @@ DRAWN = ("output_coef", "ml_coef", "dose_time", "dose_amount", "actions", "masks
 LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ = 2, 2
 LOCKSTEP_RTOL = 1e-3
 ADJOINT_RTOL, ADJOINT_ATOL = 2e-3, 1e-5
+# Phase 9: the fused loop, GPU captured / CPU / GPU host loop (FUSED_ITERS iterations, validation every
+# FUSED_TEST_FREQ), the first FUSED_HELD_ROWS validations held within TRAIN_RTOL; `--restart_mode vmap` with
+# FUSED_RESTARTS restarts against `seq` (VMAP_ITERS, VMAP_TEST_FREQ): best losses within FUSED_BEST_RTOL (float32
+# rounding of batched against separate matrix products).
+FUSED_ITERS, FUSED_TEST_FREQ, FUSED_HELD_ROWS = 20, 10, 1
+FUSED_RESTARTS, VMAP_ITERS, VMAP_TEST_FREQ = 3, 4, 2
+FUSED_BEST_RTOL = 1e-5
 KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None), (1000, 8, None), (7, 6, None),
                 (2550, 6, 1.7)]
 
@@ -334,9 +368,21 @@ def _logged_run(cli, device, tmp, **kw):
     with open(events_path) as f:
         events = [json.loads(ln) for ln in f]
     steps = [e for e in events if e["event"] == "step"]
-    return dict(curve=curve, step_s=[e["seconds"] for e in steps], first_loss=steps[0]["train_loss"],
+    return dict(curve=curve, step_s=[e["seconds"] for e in steps], first_loss=steps[0]["train_loss"] if steps else None,
                 evaluate=next(e for e in events if e["event"] == "evaluate"), seconds=seconds,
-                checkpoint=os.path.exists(path + model.model_name)), params, model, scores
+                checkpoint=os.path.exists(path + model.model_name), **_loop_record(events)), params, model, scores
+
+
+def _loop_record(events):
+    """A training loop's windows (seconds of each, from the fused loop's `window` records or, for the host loop,
+    between its validations), its graphs' capture seconds and its `done` records."""
+    windows = [e["seconds"] for e in events if e["event"] == "window"]
+    if not windows:  # the host loop: a window ends at its `val` record
+        steps, vals = [e for e in events if e["event"] == "step"], [e for e in events if e["event"] == "val"]
+        marks = [steps[0]["t"] - steps[0]["seconds"]] + [e["t"] for e in vals] if steps else []
+        windows = [b - a for a, b in zip(marks, marks[1:])]
+    return dict(window_s=windows, captures=[(e["graph"], e["seconds"]) for e in events if e["event"] == "capture"],
+                done=[e for e in events if e["event"] == "done"])
 
 
 def _train_run(device, seed, tmp):
@@ -562,7 +608,7 @@ def _real_run(device, seed, model_dir, method="hybrid", niters=REAL_ITERS, test_
         events = [json.loads(ln) for ln in f]
     return dict(curve=curve, step_s=[e["seconds"] for e in events if e["event"] == "step"],
                 predict_s=next(e["seconds"] for e in events if e["event"] == "predict_test"),
-                rmse=[r[1] for r in report], seconds=seconds), params, model
+                rmse=[r[1] for r in report], seconds=seconds, **_loop_record(events)), params, model
 
 
 def _real_pair(seed, tmp, ode_step_div, probes):
@@ -937,10 +983,200 @@ def phase_lockstep(args, probes):
     return line
 
 
+@contextlib.contextmanager
+def _fused_loop(on: bool):
+    """Training through the fused loop (`on`) or the host loop, by the port's switch HYBRIDODE_FUSED."""
+    before = os.environ.get("HYBRIDODE_FUSED")
+    os.environ["HYBRIDODE_FUSED"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("HYBRIDODE_FUSED")
+        else:
+            os.environ["HYBRIDODE_FUSED"] = before
+
+
+def _graph_measure(run):
+    """A fused run's step captured once more, on its stream, into a graph that keeps its cudaGraph_t; -> its
+    nodes (cuGraphGetNodes), capture and instantiation seconds, one replay's device milliseconds (CUDA events)
+    and wall milliseconds (host clock to a sync), and their ratio, the device's busy share during a replay.
+
+    The run's own graphs are instantiated as they are captured and keep nothing to count. The replays step the
+    finished run's parameters, which nothing reads any more. (A torch.profiler trace of a replay ended the
+    process with a segmentation fault on the H100, so none is taken.)
+    """
+    import ctypes
+    import gc
+
+    import torch
+
+    from hybridode_torch.solvers import dopri5
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    gc.collect()
+    gc.disable()
+    try:
+        t = time.perf_counter()
+        with torch.cuda.graph(graph, stream=run.step.stream), dopri5.full_budget():
+            run.step.fn()
+        capture_s = time.perf_counter() - t
+    finally:
+        gc.enable()
+    nodes = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                                     ctypes.byref(nodes))
+    t = time.perf_counter()
+    graph.instantiate()
+    instantiate_s = time.perf_counter() - t
+    device_ms = cuda_ms(graph.replay, warmup=1, runs=3)
+    t = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    return dict(nodes=nodes.value if rc == 0 else None, capture_s=capture_s, instantiate_s=instantiate_s,
+                replay_device_ms=device_ms, replay_wall_ms=wall_ms, busy_share=device_ms / wall_ms)
+
+
+def _steady_iter_s(run, test_freq):
+    """Seconds an iteration of the last window (all graph replays on the fused GPU path), validation included."""
+    return run["window_s"][-1] / test_freq if run["window_s"] else None
+
+
+def _curve_rel_diff(a, b):
+    return max((_rel_diff(x, y) for x, y in zip(_losses(a), _losses(b))), default=math.inf)
+
+
+def phase_fused(args):
+    """Phase 9: the fused loop, GPU captured against CPU and against the GPU host loop; the real step captured;
+    `--restart_mode vmap` against `seq`."""
+    import torch
+
+    from hybridode_torch.cli import run_simulation
+    from hybridode_torch.config import OptimConfig
+    from hybridode_torch.inference import fused, load_checkpoint
+
+    t0, seed = time.perf_counter(), args.seed
+    line, faults, launches = {}, [], {}
+
+    def sim(device, tmp, on, **kw):
+        kw = dict(dict(niters=FUSED_ITERS, test_freq=FUSED_TEST_FREQ, n_restart=1), **kw)
+        optim = OptimConfig(shuffle=False, niters=kw.pop("niters"), test_freq=kw.pop("test_freq"), early_stop=10,
+                            n_restart=kw.pop("n_restart"), batch_size=TRAIN_BATCH)
+        with _fused_loop(on):
+            (run, params, model, scores), _, n = _counted(lambda: _logged_run(
+                run_simulation, device, tmp, seed=seed, elbo=True, eval_only=False, init_path=None,
+                model_method="hybrid", optim_config=optim, **kw))
+        run["scores"] = _scores(scores)
+        return run, model, n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        runs["gpu_fused"], model, launches["gpu"] = sim("cuda", os.path.join(tmp, "gpu_fused"), True)
+        line["step_graph"] = _graph_measure(fused._LAST_RUN)
+        runs["cpu_fused"], _, _ = sim("cpu", os.path.join(tmp, "cpu_fused"), True)
+        runs["gpu_host"], _, launches["gpu_host_loop"] = sim("cuda", os.path.join(tmp, "gpu_host"), False)
+        for name, run in runs.items():
+            line[name] = dict(iter_s=_steady_iter_s(run, FUSED_TEST_FREQ), window_s=run["window_s"],
+                              captures=run["captures"], train_s=run["done"][-1]["wall"],
+                              evaluate_s=run["evaluate"]["seconds"], run_s=run["seconds"], curve=run["curve"],
+                              metrics=run["scores"], step_s_median=statistics.median(run["step_s"])
+                              if run["step_s"] else None)
+        for name, other in (("gpu_vs_cpu", runs["cpu_fused"]), ("gpu_vs_host_loop", runs["gpu_host"]),
+                            ("host_loop_vs_cpu", None)):
+            a, b = (runs["gpu_host"], runs["cpu_fused"]) if other is None else (runs["gpu_fused"], other)
+            line[name] = dict(held_rows_max_rel_diff=_curve_rel_diff(a["curve"][:FUSED_HELD_ROWS],
+                                                                     b["curve"][:FUSED_HELD_ROWS]),
+                              curve_max_rel_diff=_curve_rel_diff(a["curve"], b["curve"]),
+                              metric_max_rel_diff=max(_rel_diff(a["scores"][k], b["scores"][k]) for k in a["scores"]))
+        line["speedup_vs_host_loop"] = line["gpu_host"]["iter_s"] / line["gpu_fused"]["iter_s"]
+        line["speedup_vs_cpu"] = line["cpu_fused"]["iter_s"] / line["gpu_fused"]["iter_s"]
+
+        # The real hybrid, captured, against the CPU at two steps an hour.
+        with _fused_loop(True):
+            (real_gpu, _, _), _, launches["real"] = _counted(lambda: _real_run(
+                "cuda", seed, os.path.join(tmp, "real_gpu"), ode_step_div=REAL_HELD_STEP_DIV))
+            line["real_step_graph"] = _graph_measure(fused._LAST_RUN)
+            real_cpu, _, _ = _real_run("cpu", seed, os.path.join(tmp, "real_cpu"), ode_step_div=REAL_HELD_STEP_DIV)
+        line["real"] = dict(iter_s_gpu=_steady_iter_s(real_gpu, REAL_TEST_FREQ),
+                            iter_s_cpu=_steady_iter_s(real_cpu, REAL_TEST_FREQ), window_s_gpu=real_gpu["window_s"],
+                            window_s_cpu=real_cpu["window_s"], captures=real_gpu["captures"],
+                            predict_test_s_gpu=real_gpu["predict_s"], rmse_gpu=real_gpu["rmse"],
+                            rmse_cpu=real_cpu["rmse"], curve_gpu=real_gpu["curve"], curve_cpu=real_cpu["curve"],
+                            curve_max_rel_diff=_curve_rel_diff(real_gpu["curve"], real_cpu["curve"]),
+                            rmse_max_rel_diff=max(_rel_diff(a, b) for a, b in zip(real_gpu["rmse"], real_cpu["rmse"])))
+
+        # Every restart in one batched program against one after another, from one seed.
+        batched = {}
+        for mode in ("vmap", "seq"):
+            path = os.path.join(tmp, mode)
+            run, model, launches[mode] = sim("cuda", path, True, niters=VMAP_ITERS, test_freq=VMAP_TEST_FREQ,
+                                             n_restart=FUSED_RESTARTS, restart_mode=mode)
+            _, best_itr, best = load_checkpoint(path + "/", model.model_name, device="cpu")
+            batched[mode] = dict(train_s=sum(d["wall"] for d in run["done"]), window_s=run["window_s"],
+                                 captures=run["captures"], best_loss=best, best_itr=best_itr, run_s=run["seconds"])
+        batched["train_s_ratio"] = batched["vmap"]["train_s"] / batched["seq"]["train_s"]
+        # The last window of the batched run against the last window of one sequential restart.
+        batched["steady_window_ratio"] = batched["vmap"]["window_s"][-1] / batched["seq"]["window_s"][-1]
+        line["vmap"] = batched
+    line["roche_rk4_launches"] = launches
+    line["seconds"] = time.perf_counter() - t0
+    print("fused " + json.dumps(line), flush=True)
+
+    for name in ("gpu_vs_cpu", "gpu_vs_host_loop"):
+        if line[name]["held_rows_max_rel_diff"] > TRAIN_RTOL:
+            faults.append(f"fused {name} beyond rtol={TRAIN_RTOL} on the first {FUSED_HELD_ROWS} validations: "
+                          f"{line[name]}")
+    for name in ("gpu_fused", "cpu_fused", "gpu_host"):
+        if len(line[name]["curve"]) != FUSED_ITERS // FUSED_TEST_FREQ:
+            faults.append(f"{name}: {len(line[name]['curve'])} validations, expected {FUSED_ITERS // FUSED_TEST_FREQ}")
+        if not all(math.isfinite(v) for v in _losses(line[name]["curve"]) + list(line[name]["metrics"].values())):
+            faults.append(f"{name}: non-finite losses or metrics")
+    for name, captures in (("gpu_fused", line["gpu_fused"]["captures"]), ("real", line["real"]["captures"]),
+                           ("vmap", batched["vmap"]["captures"])):
+        if sorted({g for g, _ in captures}) != ["step", "validation"]:
+            faults.append(f"{name}: the step and the validation were not both captured ({captures})")
+    if line["cpu_fused"]["captures"] or line["gpu_host"]["captures"]:
+        faults.append("a CPU or host-loop run captured a graph")
+    if line["real"]["curve_max_rel_diff"] > REAL_RTOL or line["real"]["rmse_max_rel_diff"] > REAL_RTOL:
+        faults.append(f"real hybrid captured vs CPU beyond rtol={REAL_RTOL}: {line['real']['curve_max_rel_diff']}, "
+                      f"{line['real']['rmse_max_rel_diff']}")
+    if _rel_diff(batched["vmap"]["best_loss"], batched["seq"]["best_loss"]) > FUSED_BEST_RTOL or \
+            batched["vmap"]["best_itr"] != batched["seq"]["best_itr"]:
+        faults.append(f"vmap selected {batched['vmap']['best_loss']} at {batched['vmap']['best_itr']}, seq "
+                      f"{batched['seq']['best_loss']} at {batched['seq']['best_itr']}")
+    if any(launches.values()):
+        faults.append(f"the RK4 kernel was launched on a fused path: {launches}")
+    if faults:
+        raise SystemExit("; ".join(faults))
+    torch.cuda.synchronize()
+    return line
+
+
+def phase_fused_apart(args):
+    """Phase 9 in a process of its own, waited for; -> its `fused` line.
+
+    Its CUDA graphs then never share a process with the profiler's traces (a
+    trace of a graph replay ended the process with a segmentation fault on
+    the H100), and its times start from a fresh allocator.
+    """
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase", "fused", "--seed", str(args.seed)],
+                          capture_output=True, text=True, timeout=900)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode:
+        sys.stderr.write(proc.stderr[-6000:])
+        raise SystemExit(f"phase 9 failed with exit code {proc.returncode}")
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("fused "))
+    return json.loads(line[len("fused "):])
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ckpt", default=None, help="checkpoint path prefix written by either package")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phase", choices=["fused"], default=None,
+                        help="run only phase 9 and print its line (the whole script runs it so, in a process of its own)")
     args = parser.parse_args(argv)
 
     import torch
@@ -948,6 +1184,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU and has no CPU mode", file=sys.stderr)
         return 1
+    if args.phase == "fused":
+        phase_fused(args)
+        return 0
 
     import hybridode_torch
     from hybridode_torch.data import SyntheticCohort
@@ -972,10 +1211,12 @@ def main(argv=None) -> int:
     rows = phase_kernels(cohort, args.seed)
     launches = phase_slice(cohort, args)
     probes = {}
-    train = phase_train(args, probes)
-    real = phase_real(args, probes)
-    more = phase_sim_more(args, probes)
-    lockstep = phase_lockstep(args, probes)
+    with _fused_loop(False):  # phases 5-8 measure the host loop, as before the fused loop was ported
+        train = phase_train(args, probes)
+        real = phase_real(args, probes)
+        more = phase_sim_more(args, probes)
+        lockstep = phase_lockstep(args, probes)
+    fused_line = phase_fused_apart(args)
     phases_s = time.perf_counter() - start
     print("profile " + json.dumps({name: trace() for name, trace in probes.items()}), flush=True)
     total_s = time.perf_counter() - start
@@ -996,7 +1237,8 @@ def main(argv=None) -> int:
             run_simulation_residual=more["residual"]["roche_rk4_launches"],
             run_eval=more["run_eval"]["roche_rk4_launches"],
             run_simulation_lockstep=lockstep["train"]["roche_rk4_launches"],
-            create_data=lockstep["create_data"]["roche_rk4_launches"]),
+            create_data=lockstep["create_data"]["roche_rk4_launches"],
+            **{f"fused_{k}": v for k, v in fused_line["roche_rk4_launches"].items()}),
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"], device_ms=main_row["device_ms"],
         plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

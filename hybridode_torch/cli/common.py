@@ -1,10 +1,14 @@
-"""Shared CLI plumbing (counterpart of `resolve_data_config`, `build_sim_model` and `build_real_model`,
-hybridode/cli/common.py:30-160).
+"""Shared CLI plumbing (counterpart of `resolve_data_config`, `build_sim_model`, `build_real_model` and
+`run_batched_experiment`, hybridode/cli/common.py:30-190).
 
-Same signatures and the same spec values as the JAX package.
+Same signatures and the same spec values as the JAX package. Where JAX
+splits a key, the port draws seeds from one CPU `torch.Generator`
+(`restart_generators`).
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..config import DataConfig, dim8_config, dim12_config
 from ..inference.elbo import VIModel
@@ -110,3 +114,31 @@ def build_real_model(
         dec = RealBenchmarkSpec(obs_dim, encoder_output_dim, action_dim, static_dim, hidden_dim, t_max=t_max,
                                 step_size=step_size, t0=t0, ode_type=method)
     return VIModel(kind="real", encoder_spec=enc, decoder_spec=dec, elbo=False, t0=t0, weight=weight)
+
+
+def restart_generators(generator: torch.Generator) -> tuple[torch.Generator, torch.Generator]:
+    """One restart's (init, train) generators, seeded by two draws from `generator`.
+
+    The counterpart of JAX's `key, k_init, k_train = host_split(key, 3)`: the
+    sequential and the batched restart loops draw them alike, so both give
+    each restart the same weights, batches and noise.
+    """
+    seeds = (int(torch.randint(0, 2**62, (), generator=generator)) for _ in range(2))
+    return tuple(torch.Generator().manual_seed(s) for s in seeds)
+
+
+def run_batched_experiment(generator, model, dg, *, n_restart, niters, batch_size, lr, test_freq, path, best_on_disk,
+                           early_stop, shuffle, val_criterion, val_t0, curve_path, events_path, device):
+    """All restarts as one batched program (`--restart_mode vmap`); -> (params, best_on_disk).
+
+    Draws the sequential loop's restart generators, draw for draw, then runs
+    `fused_experiment_loop`. Shared by run_simulation and run_simulation_flow.
+    """
+    from ..inference.fused import fused_experiment_loop
+
+    pairs = [restart_generators(generator) for _ in range(n_restart)]
+    params, best_on_disk, _ = fused_experiment_loop(
+        niters=niters, data_generator=dg, model=model, restart_generators=pairs, batch_size=batch_size, lr=lr,
+        test_freq=test_freq, path=path, best_on_disk=best_on_disk, early_stop=early_stop, shuffle=shuffle,
+        val_criterion=val_criterion, val_t0=val_t0, curve_path=curve_path, events_path=events_path, device=device)
+    return params, best_on_disk

@@ -11,15 +11,22 @@ frozen expert constants, then `evaluate` at t0.
 
 It runs on the GPU; `--device c` asks for the CPU (the JAX package keeps the
 flag for interface parity and ignores it). All noise comes from one CPU
-`torch.Generator` seeded with `--seed`, drawn in turn by each restart's
-initialisation, its training and the final evaluation, so a CPU run and a
-GPU run from one seed see the same weights and the same noise.
+`torch.Generator` seeded with `--seed`: each restart draws from it the seeds
+of its own init and train generators (`common.restart_generators`, JAX's
+`host_split(key, 3)`), and the final evaluation draws from it, so a CPU run
+and a GPU run from one seed see the same weights and the same noise, and
+`--restart_mode vmap` (every restart in one batched program,
+`inference/fused.py`) selects the checkpoint that `seq` selects.
+
+Training runs the fused loop (on the GPU its step and validation as CUDA
+graphs) unless HYBRIDODE_FUSED=0 asks for the host loop.
 
 `--step_control lockstep` gives the Roche decoder one DOPRI5 controller for
 the whole batch, on the adjoint solver (`solvers/adjoint.py`).
 
-Not ported: `--restart_mode vmap` (ROADMAP.md, queue 1, item 2),
-`--restart_mode shard`, `--dp` above 1 and `--eval_mesh` (item 3).
+Not ported: `--restart_mode shard`, `--dp` above 1 and `--eval_mesh`
+(ROADMAP.md, queue 1, item 3), and `--restart_mode vmap` with `--step_control
+lockstep` (item 6).
 """
 
 from __future__ import annotations
@@ -40,10 +47,14 @@ from . import common
 SCORE_NAMES = ("rmse_z0", "rmse_z0_sd", "cprs_z0", "rmse_x", "rmse_x_sd", "cprs_x")
 
 
-def _refuse_unported(dp_devices, eval_mesh, restart_mode):
-    if restart_mode != "seq":
-        item = 2 if restart_mode == "vmap" else 3
-        raise NotImplementedError(f"--restart_mode={restart_mode} is not ported yet (ROADMAP.md, queue 1, item {item})")
+def _refuse_unported(dp_devices, eval_mesh, restart_mode, lockstep=False, init_path=None, eval_only=False):
+    if restart_mode == "shard":
+        raise NotImplementedError("--restart_mode=shard is not ported yet (ROADMAP.md, queue 1, item 3)")
+    if restart_mode == "vmap" and lockstep:
+        raise NotImplementedError("--restart_mode=vmap with --step_control lockstep is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 6)")
+    if restart_mode == "vmap" and init_path is not None and not eval_only:
+        raise ValueError("--restart_mode=vmap does not support --init warm starts; use the default --restart_mode=seq")
     if dp_devices is not None and dp_devices > 1:
         raise NotImplementedError("--dp above 1 is not ported yet (ROADMAP.md, queue 1, item 3)")
     if eval_mesh is not None:
@@ -81,7 +92,7 @@ def run(
     accepted for signature parity.
     """
     device = resolve_device(device)
-    _refuse_unported(dp_devices, eval_mesh, restart_mode)
+    _refuse_unported(dp_devices, eval_mesh, restart_mode, lockstep, init_path, eval_only)
     generator = torch.Generator().manual_seed(seed)
 
     dg = SyntheticCohort.load(data_path, device=device)
@@ -103,46 +114,47 @@ def run(
     params, scores = fit_and_evaluate(model, dg, generator, eval_only=eval_only, init_path=init_path, niters=niters,
                                       path=path, optim_config=optim_config, eval_config=eval_config,
                                       val_criterion=val_criterion, curve_path=curve_path, events_path=events_path,
-                                      device=device)
+                                      device=device, restart_mode=restart_mode)
     return params, model, scores
 
 
 def fit_and_evaluate(model, dg, generator, *, eval_only, init_path, niters, path, optim_config, eval_config,
-                     val_criterion, curve_path, events_path, device):
+                     val_criterion, curve_path, events_path, device, restart_mode="seq"):
     """The restart loop and the final evaluation shared by the simulation CLIs; -> (params, scores).
 
-    Each restart draws its initialisation and its training noise from
-    `generator` in turn; the best-on-disk is shared across restarts. With
-    `eval_only` the checkpoint at `path` is loaded and scored instead. The
-    event log gets an `evaluate` record with its seconds and scores.
+    Each restart draws the seeds of its init and train generators from
+    `generator` (`common.restart_generators`); the best-on-disk is shared
+    across restarts. `restart_mode="vmap"` trains every restart at once
+    (`common.run_batched_experiment`) from the same draws. With `eval_only`
+    the checkpoint at `path` is loaded and scored instead. The final
+    evaluation draws from `generator`; the event log gets an `evaluate`
+    record with its seconds and scores.
     """
     best_on_disk = 1e9
     params = None
-    for _ in range(optim_config.n_restart):
-        params = init_vi(generator, model, device=device)
-        if eval_only:
-            break
-        if init_path is not None:
-            params, _, _ = load_checkpoint(init_path, model.model_name, device)
-        params, best_on_disk, _ = variational_training_loop(
-            niters=niters,
-            data_generator=dg,
-            model=model,
-            params=params,
-            batch_size=optim_config.batch_size,
-            lr=optim_config.lr,
-            test_freq=optim_config.test_freq,
-            generator=generator,
-            path=path,
-            best_on_disk=best_on_disk,
-            early_stop=optim_config.early_stop,
-            shuffle=optim_config.shuffle,
-            val_criterion=val_criterion,
-            val_t0=eval_config.t0,
-            # The curve and event logs keep the LAST restart's trajectory.
-            curve_path=curve_path,
-            events_path=events_path,
-        )
+    if restart_mode == "vmap" and not eval_only:
+        params, best_on_disk = common.run_batched_experiment(
+            generator, model, dg, n_restart=optim_config.n_restart, niters=niters,
+            batch_size=optim_config.batch_size, lr=optim_config.lr, test_freq=optim_config.test_freq, path=path,
+            best_on_disk=best_on_disk, early_stop=optim_config.early_stop, shuffle=optim_config.shuffle,
+            val_criterion=val_criterion, val_t0=eval_config.t0, curve_path=curve_path, events_path=events_path,
+            device=device)
+    else:
+        for _ in range(optim_config.n_restart):
+            gen_init, gen_train = common.restart_generators(generator)
+            params = init_vi(gen_init, model, device=device)
+            if eval_only:
+                break
+            if init_path is not None:
+                params, _, _ = load_checkpoint(init_path, model.model_name, device)
+            params, best_on_disk, _ = variational_training_loop(
+                niters=niters, data_generator=dg, model=model, params=params, batch_size=optim_config.batch_size,
+                lr=optim_config.lr, test_freq=optim_config.test_freq, generator=gen_train, path=path,
+                best_on_disk=best_on_disk, early_stop=optim_config.early_stop, shuffle=optim_config.shuffle,
+                val_criterion=val_criterion, val_t0=eval_config.t0,
+                # The curve and event logs keep the LAST restart's trajectory.
+                curve_path=curve_path, events_path=events_path,
+            )
 
     if eval_only:
         params, _, best_loss = load_checkpoint(path, model.model_name, device)
@@ -187,7 +199,8 @@ def build_parser():
                              "controller for the batch, on the adjoint solver)")
     parser.add_argument("--dp", default=0, type=int, help="data-parallel device count (above 1: not ported)")
     parser.add_argument("--restart_mode", choices=["seq", "vmap", "shard"], default="seq", type=str,
-                        help="seq: one restart after another (vmap, shard: not ported)")
+                        help="seq: one restart after another; vmap: every restart in one batched program "
+                             "(shard: not ported)")
     parser.add_argument("--restart_devices", default=0, type=int, help="for --restart_mode=shard (not ported)")
     parser.add_argument("--eval_mesh", default=None, type=str, help="'DPxMC' evaluation mesh (not ported)")
     return parser

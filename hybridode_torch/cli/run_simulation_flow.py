@@ -11,8 +11,9 @@ checkpoint is `VI_FLOW_PlanarLSTMEncoder_HybridDecoder.pkl`, which either
 package loads.
 
 It runs on the GPU; `--device c` asks for the CPU. All noise comes from one
-CPU `torch.Generator` seeded with `--seed`. Not ported: `--restart_mode
-vmap` (ROADMAP.md, queue 1, item 2) and `--restart_mode shard` (item 3).
+CPU `torch.Generator` seeded with `--seed`, drawn as `run_simulation` draws
+it. `--restart_mode vmap` trains every restart in one batched program. Not
+ported: `--restart_mode shard` (ROADMAP.md, queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def run(seed, eval_only, data_path, sample, data_config, path, optim_config, eva
     params, scores = fit_and_evaluate(model, dg, generator, eval_only=eval_only, init_path=None, niters=niters,
                                       path=path, optim_config=optim_config, eval_config=eval_config,
                                       val_criterion=val_criterion, curve_path=curve_path, events_path=events_path,
-                                      device=device)
+                                      device=device, restart_mode=restart_mode)
     return params, model, scores
 
 
@@ -78,7 +79,8 @@ def main(argv=None):
                         help="write iter,val_loss,train_loss CSV (exp_flow.csv format)")
     parser.add_argument("--events_path", default=None, type=str, help="append JSONL training events")
     parser.add_argument("--restart_mode", choices=["seq", "vmap", "shard"], default="seq", type=str,
-                        help="seq: one restart after another (vmap, shard: not ported)")
+                        help="seq: one restart after another; vmap: every restart in one batched program "
+                             "(shard: not ported)")
     parser.add_argument("--restart_devices", default=0, type=int, help="for --restart_mode=shard (not ported)")
     args = parser.parse_args(argv)
 

@@ -16,6 +16,7 @@ masked MSE (`elbo=False`), which draws nothing.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -212,13 +213,20 @@ def flow_loss(params, model: VIModel, batch, generator: Optional[torch.Generator
     return lik + kld
 
 
+@functools.lru_cache(maxsize=None)
+def _fixed_point_draw(shape: tuple, dtype, device) -> torch.Tensor:
+    """The flow's default `eps_point`: drawn on the CPU from a generator seeded 0, put on `device` once
+    per (shape, dtype, device); never written to."""
+    return torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(device=device, dtype=dtype)
+
+
 def forecast_loss_terms(params, model: VIModel, batch, t0: int, eps_point=None):
     """(masked squared-error sum, mask count) behind forecast_loss.
 
     The real track encodes [x, a, statics]; its decoders already emit x[t0:].
     The flow posterior's point is one flow sample of a fixed draw: `eps_point`
-    (B, D), by default drawn on the CPU from a generator seeded 0 on each call
-    (JAX uses PRNGKey(0)).
+    (B, D), by default the draw of a CPU generator seeded 0, the same on every
+    call and made once per shape and device (JAX uses PRNGKey(0)).
     """
     x, a, mask = batch["measurements"], batch["actions"], batch["masks"]
     if model.kind == "real":
@@ -226,7 +234,7 @@ def forecast_loss_terms(params, model: VIModel, batch, t0: int, eps_point=None):
     enc_out = encode(params, model, x[:t0], a[:t0], mask[:t0])
     if model.kind == "flow":
         if eps_point is None:
-            eps_point = torch.randn(enc_out[0].shape, generator=torch.Generator().manual_seed(0)).to(x.device)
+            eps_point = _fixed_point_draw(tuple(enc_out[0].shape), x.dtype, x.device)
         z = encoders.planar_reparameterize(enc_out, model.encoder_spec.num_flows, eps_point)[2]
     else:
         z = enc_out[0]

@@ -9,20 +9,23 @@ host loop of `variational_training_loop` in hybridode/inference/train.py.
   `optax.set_to_zero()` (`param_labels`, train.py:31-46): they never change.
   `train_expert=True` unfreezes them. optax's and PyTorch's Adam compute the
   same update, `lr * m_hat / (sqrt(v_hat) + eps)`, eps outside the root.
-* The JAX package runs a restart by default as one fused device program
-  (inference/fused.py), which its tests hold equal to its host loop; this
-  host loop is the port's counterpart of both. The fused program and data
-  parallelism are not ported.
+* As in the JAX package (train.py:144-165), `variational_training_loop`
+  runs a restart by default as the fused loop (`inference/fused.py`: the
+  loop's state on the device, one host read per validation window, on CUDA
+  the step and the validation as CUDA graphs), which its tests hold equal to
+  this host loop. `fused=False` or `HYBRIDODE_FUSED=0` keeps the host loop,
+  which checkpoints on every improvement. Data parallelism is not ported.
 * Solver failure maps to finite-loss gates: a non-finite training loss ends
   the restart, a non-finite validation chunk adds 1e9.
 
-Each iteration reads its loss on the host once (the finite gate), which is
-the loop's one device sync per step. The event log gets a `step` record per
+Each iteration of the host loop reads its loss on the host once (the finite
+gate), its one device sync per step. Its event log gets a `step` record per
 iteration with its seconds, beside the JAX package's `val` and `done`.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable
 
@@ -35,13 +38,18 @@ from . import checkpoint as ckpt
 from .elbo import VIModel, forecast_loss, loss_fn
 
 
+def unfreeze_expert(params) -> None:
+    """Let the frozen expert leaves of `params` train (`train_expert=True`)."""
+    frozen = tuple(f"decoder.ode.{k}" for k in FROZEN_KEYS)
+    for name, p in params.named_parameters():
+        if name.startswith(frozen):
+            p.requires_grad_(True)
+
+
 def make_optimizer(lr: float, params, train_expert: bool = False) -> torch.optim.Adam:
     """Adam over the trainable leaves; with `train_expert` the frozen expert leaves train too."""
     if train_expert:
-        frozen = tuple(f"decoder.ode.{k}" for k in FROZEN_KEYS)
-        for name, p in params.named_parameters():
-            if name.startswith(frozen):
-                p.requires_grad_(True)
+        unfreeze_expert(params)
     return torch.optim.Adam([p for p in params.parameters() if p.requires_grad], lr=lr)
 
 
@@ -97,12 +105,25 @@ def variational_training_loop(
     validation beats `best_on_disk`, the best across restarts; the best
     checkpoint is reloaded at the end, or the current parameters are saved if
     none was written.
+
+    `fused`: None runs the fused loop (`inference/fused.py`) unless
+    `HYBRIDODE_FUSED=0`, for a cohort with `_fold` (every cohort of the
+    port), as the JAX package does; it checkpoints once at the end of the
+    restart (and every `HYBRIDODE_FLUSH_EVERY`-th window). False runs this
+    host loop.
     """
-    if fused:
-        raise NotImplementedError("the fused whole-restart training program is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 2); the host loop is its counterpart")
     if dp_devices is not None and dp_devices > 1:
         raise NotImplementedError("data-parallel training is not ported yet (ROADMAP.md, queue 1, item 3)")
+    if fused is None:
+        fused = os.environ.get("HYBRIDODE_FUSED", "1") != "0"
+    if fused and hasattr(data_generator, "_fold"):
+        from .fused import fused_training_loop
+
+        return fused_training_loop(
+            niters=niters, data_generator=data_generator, model=model, params=params, batch_size=batch_size,
+            lr=lr, test_freq=test_freq, generator=generator, best_on_disk=best_on_disk, early_stop=early_stop,
+            path=path, shuffle=shuffle, train_fold=train_fold, train_expert=train_expert, verbose=verbose,
+            curve_path=curve_path, events_path=events_path, val_criterion=val_criterion, val_t0=val_t0)
     device = next(params.parameters()).device
     optimizer = make_optimizer(lr, params, train_expert)
     eval_loss = make_eval_loss(model, val_criterion, val_t0)

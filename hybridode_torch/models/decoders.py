@@ -26,10 +26,14 @@ The simulation decoder has four solves:
   a CUDA state and no gradient needed.
 * Every other configuration solves with `odeint` in plain PyTorch (DOPRI5 in
   lockstep, or a fixed-step method).
+
+A decode copies nothing from the host: each spec's grid is put on a device
+once (`device_grid`), so a training step can be captured into a CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -93,6 +97,12 @@ class SimDecoderSpec(NamedTuple):
         return max(1, int(round(self.step_size / self.ode_step_size)))
 
 
+@functools.lru_cache(maxsize=None)
+def device_grid(spec, device, dtype=torch.float32) -> torch.Tensor:
+    """`spec.ts` as a tensor of `dtype` on `device`, made once per (spec, device, dtype); never written to."""
+    return torch.as_tensor(spec.ts, dtype=dtype, device=device)
+
+
 def init_sim_decoder(generator, spec: SimDecoderSpec, roche_config: RocheConfig | None = None, dtype=DTYPE,
                      device=None) -> nn.ParamTree:
     device = resolve_device(device)
@@ -106,15 +116,18 @@ def init_sim_decoder(generator, spec: SimDecoderSpec, roche_config: RocheConfig 
 
 
 def _runs_kernel(spec: SimDecoderSpec, params, init, ctx) -> bool:
+    """The RK4 kernel's configuration, on a CUDA state that needs no gradient and is not inside a
+    `torch.func` transform (the kernel reads raw device pointers)."""
     needs_grad = torch.is_grad_enabled() and (init.requires_grad or any(p.requires_grad for p in params.parameters()))
     return (spec.method == "rk4" and spec.roche and not spec.ablate and 4 <= spec.latent_dim <= MAX_DIM
-            and ctx.times.shape[-1] == 1 and init.is_cuda and not needs_grad)
+            and ctx.times.shape[-1] == 1 and init.is_cuda and not needs_grad
+            and not torch._C._functorch.is_functorch_wrapped_tensor(init))
 
 
 def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
     """(B, D) initial latents + (T, B, A) actions -> (x_hat, h)."""
     ctx = doses_from_actions(actions, spec.step_size)
-    ts = torch.as_tensor(spec.ts, device=init.device)
+    ts = device_grid(spec, init.device)
     ode = params["ode"]
     field = roche_field if spec.roche else neural_field
     if spec.method == "dopri5" and spec.use_adjoint:
@@ -206,7 +219,7 @@ def real_decoder_apply(params, spec: RealDecoderSpec, init, actions, statics):
     """
     ctx = CumDoseContext(actions=actions)
     field = _REAL_FIELDS[spec.ode_type]
-    ts = torch.as_tensor(spec.ts, device=init.device)
+    ts = device_grid(spec, init.device)
     solve = dict(method=spec.method, step_size=spec.ode_step_size, n_substeps=spec.n_substeps, rtol=spec.rtol,
                  atol=spec.atol, max_steps=spec.max_steps)
 
@@ -280,9 +293,8 @@ def gru_ode_cell(params, a, h):
 
 def real_benchmark_apply(params, spec: RealBenchmarkSpec, init, actions, statics):
     """Discrete unroll over the grid `spec.ts` (which starts at t0) -> (x_hat, hs)."""
-    ts = spec.ts
-    a_seq = actions[torch.as_tensor(ts.astype(np.int64), device=actions.device)]  # (T', B, A)
-    time_feat = torch.as_tensor(ts, dtype=actions.dtype, device=actions.device)[:, None, None] / spec.t_max
+    a_seq = actions[device_grid(spec, actions.device, torch.int64)]  # (T', B, A)
+    time_feat = device_grid(spec, actions.device, actions.dtype)[:, None, None] / spec.t_max
     obs_seq = torch.cat([a_seq, time_feat.expand(a_seq.shape)], dim=-1)
 
     if spec.ode_type == "tlstm":

@@ -24,7 +24,9 @@ The JAX function runs a bounded `lax.scan` of masked trial steps in chunks of
 runs in a Python loop, and `finished` is read on the host once a chunk (one
 sync per 64 trial steps). Rows that have finished are frozen by the masks, so
 stopping early gives exactly what the full budget of `ceil(max_steps / 64) *
-64` trial steps gives. The pieces of a solve (`start`, `trial_step`,
+64` trial steps gives. Inside `full_budget()` every solve runs that whole
+budget and reads nothing on the host: the mode of a solve captured into a
+CUDA graph or run under `torch.func.vmap` (`inference/fused.py`). The pieces of a solve (`start`, `trial_step`,
 `integrate`, `finish`, `replay_step`) are the adjoint solver's too
 (`adjoint.py`), so that it records and replays this very arithmetic.
 
@@ -44,6 +46,8 @@ output come to some 0.25 MB a step, tens of MB a solve.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -59,6 +63,23 @@ _MIN_FACTOR = 0.2
 _MAX_FACTOR = 10.0
 _ERROR_EXPONENT = -1.0 / 5.0
 _CHUNK_SIZE = 64  # trial steps between two host checks of `finished`
+_FULL_BUDGET = False  # set by `full_budget()`
+
+
+@contextlib.contextmanager
+def full_budget():
+    """Within it, every DOPRI5 solve runs its whole trial budget without reading `finished` on the host.
+
+    The result is the early-exit one, bit for bit (finished rows are frozen
+    by the masks); a CUDA graph capture and `torch.func.vmap` need it, since
+    neither allows the read.
+    """
+    global _FULL_BUDGET
+    previous, _FULL_BUDGET = _FULL_BUDGET, True
+    try:
+        yield
+    finally:
+        _FULL_BUDGET = previous
 
 
 class Dopri5Stats(NamedTuple):
@@ -80,7 +101,11 @@ class _Tableau(NamedTuple):
     D: torch.Tensor
 
     @classmethod
+    @functools.lru_cache(maxsize=None)
     def make(cls, dtype, device):
+        """One tableau per (dtype, device), copied to the device once: a stream being captured
+        into a CUDA graph allows no copy from the host."""
+
         def vec(a):
             return torch.as_tensor(a, dtype=dtype, device=device)
 
@@ -128,7 +153,7 @@ def _dopri5_step(field: Field, t, y, f0, h, args, tab: _Tableau):
 
 def _noise_floor(dtype, rtol):
     """(10 eps, rtol + 10 eps) formed in numpy at the state's precision, as JAX forms them."""
-    floor = 10.0 * np.finfo(torch.empty((), dtype=dtype).numpy().dtype).eps
+    floor = 10.0 * np.finfo(getattr(np, str(dtype).removeprefix("torch."))).eps
     return float(floor), float(rtol + floor)
 
 
@@ -264,11 +289,12 @@ def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_
 
     A row is done when it has finished or spent its `budget`. Done rows are
     frozen by the masks, so stopping at a chunk boundary gives what the full
-    ceil(max_steps / 64) * 64 steps give. `on_step` gets each step's record.
+    ceil(max_steps / 64) * 64 steps give. Inside `full_budget()` all of them
+    run and nothing is read on the host. `on_step` gets each step's record.
     """
     for _ in range(max(1, -(-max_steps // _CHUNK_SIZE))):
         done = carry[-1] if budget is None else carry[-1] | (carry[5] >= budget)
-        if bool(done.all()):  # the one host sync of a chunk
+        if not _FULL_BUDGET and bool(done.all()):  # the one host sync of a chunk
             break
         for _ in range(_CHUNK_SIZE):
             carry, rec = trial_step(s, carry, budget)

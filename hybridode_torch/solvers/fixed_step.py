@@ -5,10 +5,15 @@ over the output grid with an unrolled substep loop; here both are Python
 loops over tensors, with the same arithmetic in the same order, so the two
 agree to float32 rounding. "explicit_adams" is 4th-order Adams-Bashforth
 with an RK4 bootstrap on the first three substeps.
+
+A solve copies nothing from the host once its grid is on the device and its
+substep count is given (or its grid sits on the CPU): the AB4 coefficients
+are copied to each device once, so a solve can be captured into a CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable
 
@@ -43,12 +48,20 @@ def _rk_step(field: Field, t, y, dt, args, tableau):
 
 
 def _resolve_substeps(ts, step_size, n_substeps):
+    """The substeps an interval; only a `step_size` without `n_substeps` reads the grid (from the host
+    when it is given as an array, else one read of the device grid)."""
     if n_substeps is not None:
         return int(n_substeps)
     if step_size is None:
         return 1
-    max_dt = float(np.max(np.diff(np.asarray(ts.cpu()))))
+    grid = ts.cpu().numpy() if isinstance(ts, torch.Tensor) else np.asarray(ts)
+    max_dt = float(np.max(np.diff(grid, axis=0)))
     return max(1, int(math.ceil(max_dt / float(step_size) - 1e-9)))
+
+
+@functools.lru_cache(maxsize=None)
+def _ab4_coeffs(dtype, device) -> torch.Tensor:
+    return torch.as_tensor(tableaus.AB4_COEFFS, dtype=dtype, device=device)
 
 
 def odeint_fixed(
@@ -75,11 +88,11 @@ def odeint_fixed(
     if method not in ("explicit_adams", *tableaus.FIXED_TABLEAUS):
         raise ValueError(f"unknown fixed-step method {method!r}")
     dtype = y0.dtype
-    ts = torch.as_tensor(ts, dtype=dtype, device=y0.device)
     n_sub = _resolve_substeps(ts, step_size, n_substeps)
+    ts = torch.as_tensor(ts, dtype=dtype, device=y0.device)
     adams = method == "explicit_adams"
     tableau = tableaus.FIXED_TABLEAUS["rk4" if adams else method]
-    ab = torch.as_tensor(tableaus.AB4_COEFFS, dtype=dtype, device=y0.device)
+    ab = _ab4_coeffs(dtype, y0.device)
     steps = torch.arange(n_sub, dtype=dtype, device=y0.device).reshape((n_sub,) + (1,) * (ts.ndim - 1))
 
     y = y0

@@ -50,3 +50,31 @@ def test_cohort_check_of_phase_8_fails_loudly_on_a_mismatch():
 
     missing = {k: v for k, v in want.items() if k != "dose_time"}
     assert chip_smoke.cohort_faults(missing, want) == ["dose_time is missing"]
+
+
+def test_phase_9_reads_both_loops_windows_from_their_event_logs():
+    """`_loop_record`: the fused loop's `window` records as they are; the host loop's windows between its
+    validations, the first from the start of its first step; the graphs' capture seconds."""
+    fused = [dict(event="window", window=1, seconds=3.5), dict(event="capture", graph="step", seconds=2.0),
+             dict(event="window", window=2, seconds=0.5), dict(event="done", wall=4.0)]
+    rec = chip_smoke._loop_record(fused)
+    assert rec["window_s"] == [3.5, 0.5] and rec["captures"] == [("step", 2.0)] and rec["done"] == [fused[-1]]
+    host = [dict(event="step", t=11.0, seconds=1.0), dict(event="step", t=12.0, seconds=1.0),
+            dict(event="val", t=12.5), dict(event="step", t=13.5, seconds=1.0), dict(event="step", t=14.5, seconds=1.0),
+            dict(event="val", t=15.0), dict(event="done", wall=5.0)]
+    rec = chip_smoke._loop_record(host)
+    assert rec["window_s"] == [2.5, 2.5] and rec["captures"] == []
+    assert chip_smoke._steady_iter_s(rec, 2) == 1.25
+
+
+def test_phase_9_switches_the_training_loop_and_restores_the_switch(monkeypatch):
+    """Phases 5-8 run the host loop (`HYBRIDODE_FUSED=0`), phase 9 the fused loop; the caller's setting survives."""
+    import os
+
+    monkeypatch.delenv("HYBRIDODE_FUSED", raising=False)
+    with chip_smoke._fused_loop(False):
+        assert os.environ["HYBRIDODE_FUSED"] == "0"
+        with chip_smoke._fused_loop(True):
+            assert os.environ["HYBRIDODE_FUSED"] == "1"
+        assert os.environ["HYBRIDODE_FUSED"] == "0"
+    assert "HYBRIDODE_FUSED" not in os.environ

@@ -66,7 +66,8 @@ def test_run_hybrid_prints_the_contract_and_jax_scores_its_checkpoint(small_data
     assert os.path.exists(path + model.model_name) and model.model_name == "VI_LSTMEncoder_HybridDecoder.pkl"
     assert np.isfinite(scores[0]) and np.isfinite(scores[3])
     events = open(tmp_path / "events.jsonl").read()
-    assert events.count('"step"') == 4 and events.count('"val"') == 2 and '"evaluate"' in events
+    # The fused loop: one `window` record a validation window (the host loop logs a `step` record an iteration).
+    assert events.count('"event": "window"') == 2 and events.count('"val"') == 2 and '"evaluate"' in events
 
     # The checkpoint scored by both packages: point decodes, no noise in rmse_z0 / rmse_x.
     jparams, _, _ = j_load_checkpoint(path, model.model_name)
@@ -108,7 +109,7 @@ def test_main_parses_the_reference_flags(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--restart_mode", "vmap"], "item 2"),
+    (["--restart_mode", "vmap", "--step_control", "lockstep"], "item 6"),
     (["--restart_mode", "shard"], "item 3"),
     (["--dp", "2"], "item 3"),
     (["--eval_mesh", "4x2"], "item 3"),

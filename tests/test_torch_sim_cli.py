@@ -103,7 +103,7 @@ def test_run_simulation_flow_prints_the_contract_and_jax_loads_its_checkpoint(sm
     assert (model.kind, model.mc_size, model.encoder_spec.num_flows) == ("flow", 50, 4)
     assert model.model_name == "VI_FLOW_PlanarLSTMEncoder_HybridDecoder.pkl" and os.path.exists(path + model.model_name)
     assert len(scores) == 6 and np.isfinite(scores).all()
-    assert open(tmp_path / "events.jsonl").read().count('"step"') == 4
+    assert open(tmp_path / "events.jsonl").read().count('"event": "window"') == 2  # the fused loop's windows
 
     # The JAX package loads the checkpoint into its own flow model's tree.
     jparams, itr, _ = j_load_checkpoint(path, model.model_name)
@@ -118,9 +118,9 @@ def test_run_simulation_flow_prints_the_contract_and_jax_loads_its_checkpoint(sm
     assert lines[1].startswith("Overall best loss: ") and _csv(lines)
 
 
-@pytest.mark.parametrize("mode", ["vmap", "shard"])
+@pytest.mark.parametrize("mode", ["shard"])
 def test_run_simulation_flow_refuses_unported_restart_modes(small_data, tmp_path, mode):
-    with pytest.raises(NotImplementedError, match="item 2" if mode == "vmap" else "item 3"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         run_simulation_flow.main(["--device", "c", "--data_path", small_data, "--path", str(tmp_path) + "/",
                                   "--restart_mode", mode])
     assert not list(tmp_path.iterdir())

@@ -244,7 +244,7 @@ def test_training_loop_matches_jax_host_loop(small_cohort, tmp_path):
     out = variational_training_loop(data_generator=SyntheticCohort.load(small_cohort, device="cpu"), params=params,
                                     generator=torch.Generator().manual_seed(0), path=str(tmp_path / "port_"),
                                     curve_path=str(tmp_path / "port.csv"), events_path=str(tmp_path / "ev.jsonl"),
-                                    **dict(kw, model=m))
+                                    fused=False, **dict(kw, model=m))
     j_curve = np.loadtxt(tmp_path / "jax.csv", delimiter=",").reshape(-1, 3)
     curve = np.loadtxt(tmp_path / "port.csv", delimiter=",").reshape(-1, 3)
     assert curve.shape == (3, 3) and np.isfinite(curve).all()
@@ -277,7 +277,7 @@ def test_training_loop_rules(cohorts, tmp_path, monkeypatch, capsys):
     out, best, _ = variational_training_loop(niters=20, data_generator=c, model=m, params=params, batch_size=50,
                                              lr=0.01, test_freq=1, generator=torch.Generator().manual_seed(0),
                                              best_on_disk=4.5, early_stop=2, path=str(tmp_path / "m_"),
-                                             shuffle=True, curve_path=str(tmp_path / "c.csv"))
+                                             shuffle=True, curve_path=str(tmp_path / "c.csv"), fused=False)
     lines = capsys.readouterr().out.splitlines()
     # 9 sets the restart's best, the next two do not beat it: early stop after iteration 3.
     assert [ln.split("|")[0].strip() for ln in lines if ln.startswith("Iter")] == ["Iter 0001", "Iter 0002",
@@ -306,7 +306,7 @@ def test_training_loop_checkpoints_improvements_and_reloads_the_best(cohorts, tm
     path = str(tmp_path / "m_")
     out, best, _ = variational_training_loop(niters=4, data_generator=c, model=m, params=params, batch_size=50,
                                              lr=0.01, test_freq=1, generator=torch.Generator().manual_seed(0),
-                                             early_stop=2, path=path, shuffle=False, verbose=False)
+                                             early_stop=2, path=path, shuffle=False, verbose=False, fused=False)
     assert best == 5.0  # iteration 1's validation, never beaten
     torch.testing.assert_close(out["decoder"]["output"]["b"], b0 + 1.0)  # reloaded from iteration 1
     assert not out["decoder"]["ode"]["expert"]["kel"].requires_grad
@@ -321,7 +321,7 @@ def test_nonfinite_training_loss_ends_the_restart(cohorts, tmp_path, capsys):
     path = str(tmp_path / "m_")
     out, best, _ = variational_training_loop(niters=3, data_generator=c, model=m, params=params, batch_size=B,
                                              lr=0.01, test_freq=1, generator=torch.Generator().manual_seed(0),
-                                             path=path, shuffle=False, events_path=str(tmp_path / "e.jsonl"))
+                                             path=path, shuffle=False, events_path=str(tmp_path / "e.jsonl"), fused=False)
     text = capsys.readouterr().out
     assert "non-finite training loss; stopping this restart" in text and "Iter" not in text
     assert best == 1e9 and os.path.exists(path + m.model_name)
@@ -330,15 +330,15 @@ def test_nonfinite_training_loss_ends_the_restart(cohorts, tmp_path, capsys):
 
 
 def test_unported_training_modes_raise(cohorts):
+    """Data parallelism (queue 1, item 3) raises on the fused and the host loop alike."""
     _, c = cohorts
     m = build_sim_model("hybrid", DataConfig())
     params = elbo.init_vi(torch.Generator().manual_seed(0), m, device="cpu")
     common = dict(niters=1, data_generator=c, model=m, params=params, batch_size=B, lr=0.01, test_freq=1,
                   generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        variational_training_loop(fused=True, **common)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        variational_training_loop(dp_devices=2, **common)
+    for fused in (True, False, None):
+        with pytest.raises(NotImplementedError, match="item 3"):
+            variational_training_loop(dp_devices=2, fused=fused, **common)
 
 
 def test_get_mini_batch_matches_jax(cohorts):
