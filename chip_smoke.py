@@ -86,29 +86,43 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    (`use_adjoint=False`), within ADJOINT_RTOL and ADJOINT_ATOL, each
    backward timed. The RK4 kernel must not launch in this phase. One
    lockstep training iteration is profiled at the end.
-9. Fused, in a process of its own: the fused training loop
+9. Fused, in a process of its own (with phase 10): the fused training loop
    (`inference/fused.py`: the loop's state on the device, one host read per
    validation window, on the GPU the step and the validation as CUDA graphs)
    through `run_simulation.run` as `--method hybrid` at phase 5's width,
-   batch 50, one restart of FUSED_ITERS iterations with validation every
-   FUSED_TEST_FREQ, three ways in this call: GPU fused (captured), CPU fused,
-   and GPU host loop (`HYBRIDODE_FUSED=0`). Each run's window seconds (a
+   batch 50, one restart with validation every FUSED_TEST_FREQ, three ways in
+   this call: GPU fused (captured, FUSED_ITERS iterations: two windows), CPU
+   fused and GPU host loop (`HYBRIDODE_FUSED=0`), these two for the first
+   window only, which is all that is held. Each run's window seconds (a
    window: FUSED_TEST_FREQ steps and one validation; on the GPU the first
    holds the warm-ups and captures, the second is all graph replays) and
    seconds per iteration of the last window, the graphs' capture seconds
    (capture and instantiation together), and the GPU fused curve's first
    validation against the CPU's and the GPU host loop's within TRAIN_RTOL
-   (over 20 iterations float32 differences grow chaotically in every loop:
-   the host loop's own GPU and CPU runs end 2 % apart, so later rows and the
-   metrics are reported, not held). The captured step's graph: its nodes,
-   capture and instantiation seconds, one replay's device and wall
-   milliseconds. The real hybrid captured at REAL_HELD_STEP_DIV steps an hour
-   against the CPU within REAL_RTOL. `--restart_mode vmap` with
-   FUSED_RESTARTS restarts (VMAP_ITERS iterations, validation every
+   (float32 differences grow chaotically over iterations in every loop, so
+   later rows and the metrics are reported, not held). The captured step's
+   graph: its nodes, capture and instantiation seconds, one replay's device
+   and wall milliseconds. The real hybrid captured at REAL_HELD_STEP_DIV
+   steps an hour against the CPU within REAL_RTOL. `--restart_mode vmap`
+   with FUSED_RESTARTS restarts (VMAP_ITERS iterations, validation every
    VMAP_TEST_FREQ) against `seq` from the same seed: its seconds against the
    sequential restarts', its best loss within FUSED_BEST_RTOL and its
    checkpoint's iteration equal. The RK4 kernel must launch 0 times on every
    fused path.
+10. Parallel, in phase 9's process: a world of one NCCL rank. Phase 9's GPU
+   fused run once more through the DP entry (`variational_training_loop`
+   with a one-rank "data" mesh; `--dp 1` means one device, as in JAX): its
+   step and validation captured with their all-reduces, its first
+   validation within DP_RTOL of phase 9's, its last window's seconds per
+   iteration against phase 9's, the step graph's nodes and the all-reduces
+   a step (1: the gradients and the loss in one flat buffer).
+   `evaluate_sharded` of the hybrid at RK4 (random weights from the seed)
+   on a 1 x 1 (data, mc) mesh of the test fold: EVAL_LAUNCHES kernel
+   launches and `evaluate`'s four point metrics at 4 decimals, with its
+   seconds. `--dp 2` on the one-GPU machine: JAX's mesh error. The CPU
+   dryrun of DRYRUN_RANKS gloo ranks (`python -m
+   hybridode_torch.parallel.dryrun`), run beside the GPU work: rc 0 and
+   every OK line. Multi-GPU scaling is not measured: one card.
 
 Phases 5-8 run the host loop (`HYBRIDODE_FUSED=0`), so that their numbers
 stay comparable with the runs before the fused loop.
@@ -122,7 +136,7 @@ with CUDA activity slows every later step of the process. A `timing` line
 gives the seconds of the phases, of the profile line and of the whole
 script. The last lines are
 the `kernels` JSON (the RK4 kernel's launches on every path of the run beside
-the main path's `launches`), the nvidia-smi line and
+the main path's `launches`, `evaluate_sharded` among them), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 
@@ -188,8 +202,20 @@ ADJOINT_RTOL, ADJOINT_ATOL = 2e-3, 1e-5
 # FUSED_TEST_FREQ), the first FUSED_HELD_ROWS validations held within TRAIN_RTOL; `--restart_mode vmap` with
 # FUSED_RESTARTS restarts against `seq` (VMAP_ITERS, VMAP_TEST_FREQ): best losses within FUSED_BEST_RTOL (float32
 # rounding of batched against separate matrix products).
-FUSED_ITERS, FUSED_TEST_FREQ, FUSED_HELD_ROWS = 20, 10, 1
-FUSED_RESTARTS, VMAP_ITERS, VMAP_TEST_FREQ = 3, 4, 2
+# The CPU fused run and the GPU host loop run the first window only (FUSED_TEST_FREQ iterations): it is all that is
+# held, and the GPU fused run's second window (all replays) gives the steady seconds.
+FUSED_ITERS, FUSED_TEST_FREQ, FUSED_HELD_ROWS = 10, 5, 1
+FUSED_RESTARTS, VMAP_ITERS, VMAP_TEST_FREQ = 2, 4, 2
+# Phase 10: the DP fused restart on a world of one NCCL rank (phase 9's run through the DP entry: its first
+# validation within DP_RTOL of phase 9's, a one-rank sum and a division by 1 being exact); `evaluate_sharded` on a
+# 1 x 1 (data, mc) mesh against `evaluate` (the four point metrics equal at the CSV's 4 decimals, the kernel
+# launched EVAL_LAUNCHES times); the CPU dryrun of DRYRUN_RANKS gloo ranks and its OK lines.
+DP_RTOL = 1e-6
+DRYRUN_RANKS = 4
+DRYRUN_LINES = ("dryrun 2D mesh (2x2 data x mc) eval parity OK", "dryrun real-track DP step: loss=",
+                "dryrun flow DP step: loss=", "dryrun 2D mesh flow eval parity OK",
+                "dryrun fused-DP whole-restart parity: best=", "dryrun 2x2 restart-x-data batched experiment: best=",
+                "dryrun_multichip(4): loss=")
 FUSED_BEST_RTOL = 1e-5
 KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None), (1000, 8, None), (7, 6, None),
                 (2550, 6, 1.7)]
@@ -1074,8 +1100,9 @@ def phase_fused(args):
         runs = {}
         runs["gpu_fused"], model, launches["gpu"] = sim("cuda", os.path.join(tmp, "gpu_fused"), True)
         line["step_graph"] = _graph_measure(fused._LAST_RUN)
-        runs["cpu_fused"], _, _ = sim("cpu", os.path.join(tmp, "cpu_fused"), True)
-        runs["gpu_host"], _, launches["gpu_host_loop"] = sim("cuda", os.path.join(tmp, "gpu_host"), False)
+        runs["cpu_fused"], _, _ = sim("cpu", os.path.join(tmp, "cpu_fused"), True, niters=FUSED_TEST_FREQ)
+        runs["gpu_host"], _, launches["gpu_host_loop"] = sim("cuda", os.path.join(tmp, "gpu_host"), False,
+                                                             niters=FUSED_TEST_FREQ)
         for name, run in runs.items():
             line[name] = dict(iter_s=_steady_iter_s(run, FUSED_TEST_FREQ), window_s=run["window_s"],
                               captures=run["captures"], train_s=run["done"][-1]["wall"],
@@ -1085,10 +1112,12 @@ def phase_fused(args):
         for name, other in (("gpu_vs_cpu", runs["cpu_fused"]), ("gpu_vs_host_loop", runs["gpu_host"]),
                             ("host_loop_vs_cpu", None)):
             a, b = (runs["gpu_host"], runs["cpu_fused"]) if other is None else (runs["gpu_fused"], other)
+            same_length = len(a["curve"]) == len(b["curve"])  # else the metrics are of runs of other lengths
             line[name] = dict(held_rows_max_rel_diff=_curve_rel_diff(a["curve"][:FUSED_HELD_ROWS],
                                                                      b["curve"][:FUSED_HELD_ROWS]),
                               curve_max_rel_diff=_curve_rel_diff(a["curve"], b["curve"]),
-                              metric_max_rel_diff=max(_rel_diff(a["scores"][k], b["scores"][k]) for k in a["scores"]))
+                              metric_max_rel_diff=max(_rel_diff(a["scores"][k], b["scores"][k]) for k in a["scores"])
+                              if same_length else None)
         line["speedup_vs_host_loop"] = line["gpu_host"]["iter_s"] / line["gpu_fused"]["iter_s"]
         line["speedup_vs_cpu"] = line["cpu_fused"]["iter_s"] / line["gpu_fused"]["iter_s"]
 
@@ -1127,9 +1156,9 @@ def phase_fused(args):
         if line[name]["held_rows_max_rel_diff"] > TRAIN_RTOL:
             faults.append(f"fused {name} beyond rtol={TRAIN_RTOL} on the first {FUSED_HELD_ROWS} validations: "
                           f"{line[name]}")
-    for name in ("gpu_fused", "cpu_fused", "gpu_host"):
-        if len(line[name]["curve"]) != FUSED_ITERS // FUSED_TEST_FREQ:
-            faults.append(f"{name}: {len(line[name]['curve'])} validations, expected {FUSED_ITERS // FUSED_TEST_FREQ}")
+    for name, windows in (("gpu_fused", FUSED_ITERS // FUSED_TEST_FREQ), ("cpu_fused", 1), ("gpu_host", 1)):
+        if len(line[name]["curve"]) != windows:
+            faults.append(f"{name}: {len(line[name]['curve'])} validations, expected {windows}")
         if not all(math.isfinite(v) for v in _losses(line[name]["curve"]) + list(line[name]["metrics"].values())):
             faults.append(f"{name}: non-finite losses or metrics")
     for name, captures in (("gpu_fused", line["gpu_fused"]["captures"]), ("real", line["real"]["captures"]),
@@ -1153,8 +1182,131 @@ def phase_fused(args):
     return line
 
 
+def _dryrun_start():
+    """The CPU dryrun of DRYRUN_RANKS gloo ranks, started in the background (its ranks take one core each)."""
+    return subprocess.Popen([sys.executable, "-m", "hybridode_torch.parallel.dryrun", str(DRYRUN_RANKS), "--device",
+                             "c"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_wait(proc, t_start):
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    lines = out.splitlines()
+    missing = [want for want in DRYRUN_LINES if not any(ln.startswith(want) and ln.endswith("OK") for ln in lines)]
+    return dict(rc=proc.returncode, seconds=time.perf_counter() - t_start, ok_lines=[ln for ln in lines if
+                                                                                        ln.endswith("OK")],
+                missing=missing, stderr_tail=err[-2000:] if proc.returncode else "")
+
+
+def phase_parallel(args, fused_line):
+    """Phase 10: the DP fused restart on a world of one NCCL rank, captured (its all-reduces in the step's and the
+    validation's graphs), against phase 9's captured run from the same seed; `evaluate_sharded` on a 1 x 1 (data,
+    mc) mesh at RK4 against `evaluate`; `--dp 2` refused on the one-GPU machine; the 4-rank CPU dryrun."""
+    import torch
+
+    from hybridode_torch.cli import common, run_simulation
+    from hybridode_torch.config import DataConfig
+    from hybridode_torch.data import SyntheticCohort
+    from hybridode_torch.eval import evaluate
+    from hybridode_torch.inference import fused, init_vi, variational_training_loop
+    from hybridode_torch.ops import roche_rk4
+    from hybridode_torch.parallel import close_world, evaluate_sharded, init_world, make_mesh, make_mesh_2d
+    from hybridode_torch.parallel.mesh import all_reduce_sum
+
+    t0, seed, line, faults = time.perf_counter(), args.seed, {}, []
+    dryrun = _dryrun_start()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(0, 1, os.path.join(tmp, "store"), "cuda")
+        try:
+            # Phase 9's `run_simulation.run` (one restart) through the DP entry: the same draws, a mesh of one rank.
+            generator = torch.Generator().manual_seed(seed)
+            cohort = SyntheticCohort.load(COHORT, device="cuda")
+            cohort.set_train_size(1000)
+            model = common.build_sim_model("hybrid", DataConfig(), elbo=True)
+            gen_init, gen_train = common.restart_generators(generator)
+            params = init_vi(gen_init, model, device="cuda")
+            events = os.path.join(tmp, "dp.jsonl")
+            calls = all_reduce_sum.calls
+            (_, best, _), train_s, launches = _counted(lambda: variational_training_loop(
+                niters=FUSED_ITERS, data_generator=cohort, model=model, params=params, batch_size=TRAIN_BATCH,
+                lr=0.01, test_freq=FUSED_TEST_FREQ, generator=gen_train, path=os.path.join(tmp, "dp_"),
+                early_stop=10, shuffle=False, val_criterion="forecast", val_t0=5, events_path=events,
+                mesh=make_mesh(1), fused=True, verbose=False))
+            calls_run = all_reduce_sum.calls - calls
+            with open(events) as f:
+                recs = [json.loads(ln) for ln in f]
+            run = _loop_record(recs)
+            curve = [[r["itr"], r["val_loss"], r["train_loss"]] for r in recs if r["event"] == "val"]
+            calls = all_reduce_sum.calls
+            graph = _graph_measure(fused._LAST_RUN)
+            graph["all_reduce_calls"] = all_reduce_sum.calls - calls
+            ref = fused_line["gpu_fused"]
+            line["dp_fused"] = dict(
+                iter_s=_steady_iter_s(run, FUSED_TEST_FREQ), window_s=run["window_s"], captures=run["captures"],
+                train_s=train_s, curve=curve, best_loss=best, all_reduce_calls_run=calls_run, step_graph=graph,
+                first_val_rel_diff=_rel_diff(curve[0][1], ref["curve"][0][1]) if curve and ref["curve"] else math.inf,
+                curve_max_rel_diff=_curve_rel_diff(curve, ref["curve"]),
+                iter_s_non_dp=ref["iter_s"], iter_s_ratio=_steady_iter_s(run, FUSED_TEST_FREQ) / ref["iter_s"],
+                roche_rk4_launches=launches)
+
+            # The 2-D evaluation on a 1 x 1 mesh of the hybrid at RK4, against `evaluate` from one generator seed.
+            model_rk4 = _rk4_at_eval_step(model)
+            params_rk4 = init_vi(torch.Generator().manual_seed(seed), model_rk4, device="cuda")
+            mesh = make_mesh_2d(1, 1)
+            evaluate(params_rk4, model_rk4, cohort, TRAIN_BATCH, 5, verbose=False, device="cuda")  # the kernel's load
+            sharded, sharded_s, sharded_launches = _counted(lambda: evaluate_sharded(
+                params_rk4, model_rk4, cohort, TRAIN_BATCH, 5, mesh, generator=torch.Generator().manual_seed(seed),
+                verbose=False, device="cuda"))
+            plain, plain_s, plain_launches = _counted(lambda: evaluate(
+                params_rk4, model_rk4, cohort, TRAIN_BATCH, 5, generator=torch.Generator().manual_seed(seed),
+                verbose=False, device="cuda"))
+            line["evaluate_sharded"] = dict(
+                seconds=sharded_s, evaluate_s=plain_s, roche_rk4_launches=sharded_launches,
+                evaluate_launches=plain_launches, metrics=_scores(sharded), evaluate_metrics=_scores(plain),
+                equal_at_4_decimals=all(f"{sharded[i]:.4f}" == f"{plain[i]:.4f}" for i in (0, 2, 3, 5)))
+
+            # `--dp 2` on a machine of one GPU: the mesh error before any rank starts.
+            try:
+                run_simulation.main(["--dp", "2", "--data_path", COHORT, "--path", os.path.join(tmp, "refused_")])
+                refusal = "no error"
+            except ValueError as e:
+                refusal = str(e)
+            line["refusal"] = refusal
+        finally:
+            close_world()
+    line["dryrun"] = _dryrun_wait(dryrun, t0)
+    line["seconds"] = time.perf_counter() - t0
+    print("parallel " + json.dumps(line), flush=True)
+
+    dp = line["dp_fused"]
+    if dp["first_val_rel_diff"] > DP_RTOL:
+        faults.append(f"DP first validation {dp['curve'][:1]} against phase 9's {fused_line['gpu_fused']['curve'][:1]}"
+                      f" beyond rtol={DP_RTOL}")
+    if len(dp["curve"]) != FUSED_ITERS // FUSED_TEST_FREQ or not all(map(math.isfinite, _losses(dp["curve"]))):
+        faults.append(f"DP run: {dp['curve']}")
+    if sorted({g for g, _ in dp["captures"]}) != ["step", "validation"]:
+        faults.append(f"DP run: the step and the validation were not both captured ({dp['captures']})")
+    if dp["step_graph"]["all_reduce_calls"] != 1:
+        faults.append(f"the DP step made {dp['step_graph']['all_reduce_calls']} all-reduces, expected 1")
+    ev = line["evaluate_sharded"]
+    if ev["roche_rk4_launches"] != EVAL_LAUNCHES or not ev["equal_at_4_decimals"]:
+        faults.append(f"evaluate_sharded: {ev}")
+    if not refusal.startswith("requested a 2-device 'data' mesh but only 1 devices are available"):
+        faults.append(f"--dp 2 on one GPU: {refusal}")
+    if line["dryrun"]["rc"] or line["dryrun"]["missing"]:
+        faults.append(f"dryrun: {line['dryrun']}")
+    if dp["roche_rk4_launches"]:
+        faults.append(f"the RK4 kernel was launched on the DP training path: {dp['roche_rk4_launches']}")
+    if faults:
+        raise SystemExit("; ".join(faults))
+    return line
+
+
 def phase_fused_apart(args):
-    """Phase 9 in a process of its own, waited for; -> its `fused` line.
+    """Phases 9 and 10 in a process of its own, waited for; -> their `fused` and `parallel` lines.
 
     Its CUDA graphs then never share a process with the profiler's traces (a
     trace of a graph replay ended the process with a segmentation fault on
@@ -1166,9 +1318,38 @@ def phase_fused_apart(args):
     sys.stdout.flush()
     if proc.returncode:
         sys.stderr.write(proc.stderr[-6000:])
-        raise SystemExit(f"phase 9 failed with exit code {proc.returncode}")
-    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("fused "))
-    return json.loads(line[len("fused "):])
+        raise SystemExit(f"phase 9 or 10 failed with exit code {proc.returncode}")
+    lines = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
+             if ln.startswith(("fused ", "parallel "))}
+    return lines["fused"], lines["parallel"]
+
+
+def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line) -> dict:
+    """The `kernels` JSON: the RK4 kernel's numbers at evaluate's shape (B=2550, the one launch of each chunk) and
+    its launches on every path of the run, the main path's beside the others."""
+    main_row = rows[0]
+    return {"kernels": [dict(
+        name="roche_rk4", route="cuda", source="hybridode_torch/ops/csrc/roche_rk4.cu",
+        replaces="hybridode/ops/pallas/roche_kernel.py:151", launches=launches,
+        launches_by_path=dict(
+            evaluate=launches, evaluate_horizon=more["evaluate_horizon"]["roche_rk4_launches"],
+            evaluate_ensemble_horizon=more["evaluate_ensemble_horizon"]["roche_rk4_launches"],
+            flow_evaluate=more["flow_evaluate"]["roche_rk4_launches"],
+            run_simulation=train["roche_rk4_launches"], run_real=real["roche_rk4_launches"],
+            run_simulation_flow=more["flow"]["roche_rk4_launches"],
+            run_simulation_members=more["members"]["roche_rk4_launches"],
+            run_simulation_ensemble=more["ensemble"]["roche_rk4_launches"],
+            run_simulation_residual=more["residual"]["roche_rk4_launches"],
+            run_eval=more["run_eval"]["roche_rk4_launches"],
+            run_simulation_lockstep=lockstep["train"]["roche_rk4_launches"],
+            create_data=lockstep["create_data"]["roche_rk4_launches"],
+            **{f"fused_{k}": v for k, v in fused_line["roche_rk4_launches"].items()},
+            evaluate_sharded=parallel_line["evaluate_sharded"]["roche_rk4_launches"],
+            fused_dp=parallel_line["dp_fused"]["roche_rk4_launches"]),
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"], device_ms=main_row["device_ms"],
+        plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+        library_ms=None,  # no single PyTorch call computes an RK4 solve of this field
+    )]}
 
 
 def main(argv=None) -> int:
@@ -1176,7 +1357,8 @@ def main(argv=None) -> int:
     parser.add_argument("--ckpt", default=None, help="checkpoint path prefix written by either package")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=["fused"], default=None,
-                        help="run only phase 9 and print its line (the whole script runs it so, in a process of its own)")
+                        help="run only phases 9 and 10 and print their lines (the whole script runs them so, in a "
+                             "process of their own)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1185,7 +1367,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script measures the GPU and has no CPU mode", file=sys.stderr)
         return 1
     if args.phase == "fused":
-        phase_fused(args)
+        phase_parallel(args, phase_fused(args))
         return 0
 
     import hybridode_torch
@@ -1216,34 +1398,14 @@ def main(argv=None) -> int:
         real = phase_real(args, probes)
         more = phase_sim_more(args, probes)
         lockstep = phase_lockstep(args, probes)
-    fused_line = phase_fused_apart(args)
+    fused_line, parallel_line = phase_fused_apart(args)
     phases_s = time.perf_counter() - start
     print("profile " + json.dumps({name: trace() for name, trace in probes.items()}), flush=True)
     total_s = time.perf_counter() - start
     print("timing " + json.dumps(dict(phases_s=phases_s, profile_s=total_s - phases_s, total_s=total_s)), flush=True)
 
-    main_row = rows[0]  # B=2550: the one launch of each chunk of evaluate
-    print(json.dumps({"kernels": [dict(
-        name="roche_rk4", route="cuda", source="hybridode_torch/ops/csrc/roche_rk4.cu",
-        replaces="hybridode/ops/pallas/roche_kernel.py:151", launches=launches,
-        launches_by_path=dict(
-            evaluate=launches, evaluate_horizon=more["evaluate_horizon"]["roche_rk4_launches"],
-            evaluate_ensemble_horizon=more["evaluate_ensemble_horizon"]["roche_rk4_launches"],
-            flow_evaluate=more["flow_evaluate"]["roche_rk4_launches"],
-            run_simulation=train["roche_rk4_launches"], run_real=real["roche_rk4_launches"],
-            run_simulation_flow=more["flow"]["roche_rk4_launches"],
-            run_simulation_members=more["members"]["roche_rk4_launches"],
-            run_simulation_ensemble=more["ensemble"]["roche_rk4_launches"],
-            run_simulation_residual=more["residual"]["roche_rk4_launches"],
-            run_eval=more["run_eval"]["roche_rk4_launches"],
-            run_simulation_lockstep=lockstep["train"]["roche_rk4_launches"],
-            create_data=lockstep["create_data"]["roche_rk4_launches"],
-            **{f"fused_{k}": v for k, v in fused_line["roche_rk4_launches"].items()}),
-        max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"], device_ms=main_row["device_ms"],
-        plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None,  # no single PyTorch call computes an RK4 solve of this field
-    )]}), flush=True)
+    print(json.dumps(kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line)),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,12 @@
 """Shared CLI plumbing (counterpart of `resolve_data_config`, `build_sim_model`, `build_real_model` and
-`run_batched_experiment`, hybridode/cli/common.py:30-190).
+`run_batched_experiment`, hybridode/cli/common.py:30-200).
 
 Same signatures and the same spec values as the JAX package. Where JAX
 splits a key, the port draws seeds from one CPU `torch.Generator`
-(`restart_generators`).
+(`restart_generators`). Where JAX sees every device from one process, the
+port starts one process per rank: `check_parallel_flags` sizes the world a
+simulation run needs (the larger of its training and its evaluation mesh)
+and refuses what cannot run before anything is started or written.
 """
 
 from __future__ import annotations
@@ -128,8 +131,9 @@ def restart_generators(generator: torch.Generator) -> tuple[torch.Generator, tor
 
 
 def run_batched_experiment(generator, model, dg, *, n_restart, niters, batch_size, lr, test_freq, path, best_on_disk,
-                           early_stop, shuffle, val_criterion, val_t0, curve_path, events_path, device):
-    """All restarts as one batched program (`--restart_mode vmap`); -> (params, best_on_disk).
+                           early_stop, shuffle, val_criterion, val_t0, curve_path, events_path, device, mesh=None):
+    """All restarts as one batched program (`--restart_mode vmap`, or `shard` over a (restart, data) `mesh`);
+    -> (params, best_on_disk).
 
     Draws the sequential loop's restart generators, draw for draw, then runs
     `fused_experiment_loop`. Shared by run_simulation and run_simulation_flow.
@@ -140,5 +144,60 @@ def run_batched_experiment(generator, model, dg, *, n_restart, niters, batch_siz
     params, best_on_disk, _ = fused_experiment_loop(
         niters=niters, data_generator=dg, model=model, restart_generators=pairs, batch_size=batch_size, lr=lr,
         test_freq=test_freq, path=path, best_on_disk=best_on_disk, early_stop=early_stop, shuffle=shuffle,
-        val_criterion=val_criterion, val_t0=val_t0, curve_path=curve_path, events_path=events_path, device=device)
+        val_criterion=val_criterion, val_t0=val_t0, curve_path=curve_path, events_path=events_path, device=device,
+        mesh=mesh)
     return params, best_on_disk
+
+
+def check_parallel_flags(*, restart_mode, n_restart, dp_devices, restart_devices, eval_mesh, batch_size,
+                         init_path, eval_only, device, mc_itr=50) -> int:
+    """Refuse what `--dp`, `--restart_mode`, `--restart_devices` and `--eval_mesh` cannot run, with the JAX
+    package's messages; -> the ranks the run needs: the larger of its training mesh and its evaluation mesh.
+
+    On CUDA every rank takes a GPU of its own, so a mesh larger than the
+    visible GPUs raises JAX's mesh error, and a world of more than one GPU is
+    refused (ROADMAP.md, queue 3); on the CPU ranks are gloo processes.
+    """
+    from ..parallel.eval import check_sharded_eval
+    from ..parallel.launch import refuse_gpu_world
+    from ..parallel.mesh import require_devices
+
+    if restart_mode != "seq":
+        if dp_devices and restart_mode != "shard":
+            raise ValueError("--restart_mode=vmap does not compose with --dp; use --restart_mode=shard with --dp "
+                             "for a 2-D restart x data mesh")
+        if init_path is not None and not eval_only:
+            raise ValueError("--restart_mode=vmap/shard does not support --init warm starts; use the default "
+                             "--restart_mode=seq")
+    dp = dp_devices or 1
+    if batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} not divisible by dp_devices {dp}")
+    if restart_mode == "shard" and not eval_only:
+        r = restart_devices or n_restart
+        if r > 1 and n_restart % r:
+            raise ValueError(f"n_restart {n_restart} not divisible by restart_devices {r}")
+        train, what = r * dp, f"{r}x{dp} ('restart', 'data')"
+    else:
+        train, what = (1, "") if eval_only else (dp, f"{dp}-device 'data'")
+    evaluation = 1
+    if eval_mesh is not None:
+        check_sharded_eval(mc_itr, batch_size, *eval_mesh)
+        evaluation = eval_mesh[0] * eval_mesh[1]
+    if torch.device(device).type == "cuda":
+        gpus = torch.cuda.device_count()
+        require_devices(train, what, gpus)
+        if eval_mesh is not None:
+            require_devices(evaluation, f"{eval_mesh[0]}x{eval_mesh[1]} ('data', 'mc')", gpus)
+    refuse_gpu_world(max(train, evaluation), device)
+    return max(train, evaluation)
+
+
+def _call(fn, kwargs):
+    return fn(**kwargs)
+
+
+def launch_run(run, kwargs: dict, world: int, device):
+    """`run(**kwargs)` on every rank of a new world of `world` ranks (`parallel.launch`); -> rank 0's result."""
+    from ..parallel.launch import launch
+
+    return launch(_call, world, run, dict(kwargs, device=str(device)), device=device)

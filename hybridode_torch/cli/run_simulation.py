@@ -24,9 +24,18 @@ graphs) unless HYBRIDODE_FUSED=0 asks for the host loop.
 `--step_control lockstep` gives the Roche decoder one DOPRI5 controller for
 the whole batch, on the adjoint solver (`solvers/adjoint.py`).
 
-Not ported: `--restart_mode shard`, `--dp` above 1 and `--eval_mesh`
-(ROADMAP.md, queue 1, item 3), and `--restart_mode vmap` with `--step_control
-lockstep` (item 6).
+Parallelism (`hybridode_torch/parallel/`, one process per rank: gloo ranks
+with `--device c`, one NCCL rank a GPU on CUDA): `--dp N` trains each restart
+data-parallel over N ranks; `--restart_mode shard` spreads the batched
+restarts over `--restart_devices` ranks (default: one a restart), each lane
+data-parallel over `--dp`; `--eval_mesh DPxMC` evaluates on a (patients x
+MC samples) mesh. The run starts the larger of its training and evaluation
+meshes; a mesh takes the first ranks and the others wait; rank 0 prints and
+writes. A mesh larger than the visible GPUs raises; nothing runs two ranks on
+one GPU or moves to the CPU. A world of more than one GPU is refused until
+the hang of such runs is fixed (ROADMAP.md, queue 3): on CUDA these flags
+run a world of one rank. Not ported: `--restart_mode vmap` with
+`--step_control lockstep` (ROADMAP.md, queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -35,30 +44,25 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..config import EvalConfig, OptimConfig
 from ..data import SyntheticCohort
 from ..eval import evaluate
+from ..parallel.eval import evaluate_sharded
 from ..inference import init_vi, load_checkpoint, variational_training_loop
+from ..parallel.launch import is_writer
 from ..utils.logging import JSONLLogger
 from . import common
 
 SCORE_NAMES = ("rmse_z0", "rmse_z0_sd", "cprs_z0", "rmse_x", "rmse_x_sd", "cprs_x")
 
 
-def _refuse_unported(dp_devices, eval_mesh, restart_mode, lockstep=False, init_path=None, eval_only=False):
-    if restart_mode == "shard":
-        raise NotImplementedError("--restart_mode=shard is not ported yet (ROADMAP.md, queue 1, item 3)")
-    if restart_mode == "vmap" and lockstep:
-        raise NotImplementedError("--restart_mode=vmap with --step_control lockstep is not ported yet "
+def _refuse_unported(restart_mode, lockstep=False):
+    if restart_mode in ("vmap", "shard") and lockstep:
+        raise NotImplementedError(f"--restart_mode={restart_mode} with --step_control lockstep is not ported yet "
                                   "(ROADMAP.md, queue 1, item 6)")
-    if restart_mode == "vmap" and init_path is not None and not eval_only:
-        raise ValueError("--restart_mode=vmap does not support --init warm starts; use the default --restart_mode=seq")
-    if dp_devices is not None and dp_devices > 1:
-        raise NotImplementedError("--dp above 1 is not ported yet (ROADMAP.md, queue 1, item 3)")
-    if eval_mesh is not None:
-        raise NotImplementedError("--eval_mesh is not ported yet (ROADMAP.md, queue 1, item 3)")
 
 
 def run(
@@ -88,11 +92,20 @@ def run(
 ):
     """Train n_restart times, then evaluate; -> (params, model, the six numbers of `evaluate`).
 
-    `restart_devices` belongs to the unported `--restart_mode shard` and is
-    accepted for signature parity.
+    `dp_devices`, `restart_mode="shard"` with `restart_devices` (default
+    n_restart) and `eval_mesh` (n_data, n_mc) as the CLI's flags: called
+    outside a world, a run that needs more than one rank starts them and
+    returns rank 0's result.
     """
+    kwargs = dict(locals())
     device = resolve_device(device)
-    _refuse_unported(dp_devices, eval_mesh, restart_mode, lockstep, init_path, eval_only)
+    _refuse_unported(restart_mode, lockstep)
+    world = common.check_parallel_flags(restart_mode=restart_mode, n_restart=optim_config.n_restart,
+                                        dp_devices=dp_devices, restart_devices=restart_devices, eval_mesh=eval_mesh,
+                                        batch_size=optim_config.batch_size, init_path=init_path, eval_only=eval_only,
+                                        device=device)
+    if world > 1 and not dist.is_initialized():
+        return common.launch_run(run, kwargs, world, device)
     generator = torch.Generator().manual_seed(seed)
 
     dg = SyntheticCohort.load(data_path, device=device)
@@ -114,37 +127,53 @@ def run(
     params, scores = fit_and_evaluate(model, dg, generator, eval_only=eval_only, init_path=init_path, niters=niters,
                                       path=path, optim_config=optim_config, eval_config=eval_config,
                                       val_criterion=val_criterion, curve_path=curve_path, events_path=events_path,
-                                      device=device, restart_mode=restart_mode)
+                                      device=device, restart_mode=restart_mode, dp_devices=dp_devices,
+                                      restart_devices=restart_devices, eval_mesh=eval_mesh)
     return params, model, scores
 
 
 def fit_and_evaluate(model, dg, generator, *, eval_only, init_path, niters, path, optim_config, eval_config,
-                     val_criterion, curve_path, events_path, device, restart_mode="seq"):
+                     val_criterion, curve_path, events_path, device, restart_mode="seq", dp_devices=None,
+                     restart_devices=None, eval_mesh=None):
     """The restart loop and the final evaluation shared by the simulation CLIs; -> (params, scores).
 
     Each restart draws the seeds of its init and train generators from
     `generator` (`common.restart_generators`); the best-on-disk is shared
     across restarts. `restart_mode="vmap"` trains every restart at once
-    (`common.run_batched_experiment`) from the same draws. With `eval_only`
-    the checkpoint at `path` is loaded and scored instead. The final
-    evaluation draws from `generator`; the event log gets an `evaluate`
-    record with its seconds and scores.
+    (`common.run_batched_experiment`) from the same draws, `"shard"` spreads
+    them over a (restart, data) mesh. With `eval_only` the checkpoint at
+    `path` is loaded and scored instead. The final evaluation draws from
+    `generator`, over a (data, mc) mesh with `eval_mesh`; the event log gets
+    an `evaluate` record with its seconds and scores.
+
+    In a world of ranks every rank calls this. The training mesh takes the
+    first ranks, and only they train (rank 0 alone when there is no mesh).
+    Then every rank waits for the others without a collective (`wait_idle`),
+    and a rank that did not train reads the checkpoint rank 0 wrote; every
+    rank takes rank 0's generator, so the evaluation draws as one process.
     """
+    from ..parallel.launch import rank, wait_idle, world_size
+    from ..parallel.mesh import make_mesh, make_mesh_2d, member
+
     best_on_disk = 1e9
     params = None
-    if restart_mode == "vmap" and not eval_only:
+    n_restart = optim_config.n_restart
+    dp = dp_devices or 1
+    lanes = (restart_devices or n_restart) if restart_mode == "shard" else 1
+    mesh = None
+    if not eval_only and lanes * dp > 1:  # every rank of the world makes the mesh: making it is collective
+        mesh = make_mesh_2d(lanes, dp, ("restart", "data")) if restart_mode == "shard" else make_mesh(dp)
+    trains = not eval_only and (member(mesh) if mesh is not None else rank() == 0)
+    if trains and restart_mode in ("vmap", "shard"):
         params, best_on_disk = common.run_batched_experiment(
-            generator, model, dg, n_restart=optim_config.n_restart, niters=niters,
-            batch_size=optim_config.batch_size, lr=optim_config.lr, test_freq=optim_config.test_freq, path=path,
-            best_on_disk=best_on_disk, early_stop=optim_config.early_stop, shuffle=optim_config.shuffle,
-            val_criterion=val_criterion, val_t0=eval_config.t0, curve_path=curve_path, events_path=events_path,
-            device=device)
-    else:
-        for _ in range(optim_config.n_restart):
+            generator, model, dg, n_restart=n_restart, niters=niters, batch_size=optim_config.batch_size,
+            lr=optim_config.lr, test_freq=optim_config.test_freq, path=path, best_on_disk=best_on_disk,
+            early_stop=optim_config.early_stop, shuffle=optim_config.shuffle, val_criterion=val_criterion,
+            val_t0=eval_config.t0, curve_path=curve_path, events_path=events_path, device=device, mesh=mesh)
+    elif trains:
+        for _ in range(n_restart):
             gen_init, gen_train = common.restart_generators(generator)
             params = init_vi(gen_init, model, device=device)
-            if eval_only:
-                break
             if init_path is not None:
                 params, _, _ = load_checkpoint(init_path, model.model_name, device)
             params, best_on_disk, _ = variational_training_loop(
@@ -153,18 +182,37 @@ def fit_and_evaluate(model, dg, generator, *, eval_only, init_path, niters, path
                 best_on_disk=best_on_disk, early_stop=optim_config.early_stop, shuffle=optim_config.shuffle,
                 val_criterion=val_criterion, val_t0=eval_config.t0,
                 # The curve and event logs keep the LAST restart's trajectory.
-                curve_path=curve_path, events_path=events_path,
+                curve_path=curve_path, events_path=events_path, mesh=mesh,
             )
 
     if eval_only:
+        if n_restart:
+            common.restart_generators(generator)  # the draws of a training run's first restart
         params, _, best_loss = load_checkpoint(path, model.model_name, device)
-        print("Overall best loss: {:.6f}".format(best_loss))
+        if is_writer():
+            print("Overall best loss: {:.6f}".format(best_loss))
+    elif world_size() > 1:
+        wait_idle("trained")
+        if not trains:
+            params = load_checkpoint(path, model.model_name, device)[0]
+        state = [generator.get_state()]
+        dist.broadcast_object_list(state, src=0)
+        generator.set_state(state[0])
 
     t = time.perf_counter()
-    scores = evaluate(params, model, dg, optim_config.batch_size, eval_config.t0, generator=generator, device=device)
-    events = JSONLLogger(events_path)
-    events.log("evaluate", seconds=time.perf_counter() - t, **dict(zip(SCORE_NAMES, scores)))
-    events.close()
+    scores = None
+    if eval_mesh is not None:
+        mesh = make_mesh_2d(*eval_mesh)
+        if member(mesh):
+            scores = evaluate_sharded(params, model, dg, optim_config.batch_size, eval_config.t0, mesh,
+                                      generator=generator, device=device)
+    elif is_writer():
+        scores = evaluate(params, model, dg, optim_config.batch_size, eval_config.t0, generator=generator,
+                          device=device)
+    if is_writer():
+        events = JSONLLogger(events_path)
+        events.log("evaluate", seconds=time.perf_counter() - t, **dict(zip(SCORE_NAMES, scores)))
+        events.close()
     return params, scores
 
 
@@ -197,13 +245,24 @@ def build_parser():
     parser.add_argument("--step_control", choices=["per_sample", "lockstep"], default="per_sample", type=str,
                         help="adaptive step controller granularity: per-sample (default) or lockstep (one "
                              "controller for the batch, on the adjoint solver)")
-    parser.add_argument("--dp", default=0, type=int, help="data-parallel device count (above 1: not ported)")
-    parser.add_argument("--restart_mode", choices=["seq", "vmap", "shard"], default="seq", type=str,
-                        help="seq: one restart after another; vmap: every restart in one batched program "
-                             "(shard: not ported)")
-    parser.add_argument("--restart_devices", default=0, type=int, help="for --restart_mode=shard (not ported)")
-    parser.add_argument("--eval_mesh", default=None, type=str, help="'DPxMC' evaluation mesh (not ported)")
+    add_parallel_flags(parser)
     return parser
+
+
+def add_parallel_flags(parser) -> None:
+    """`--dp`, `--restart_mode`, `--restart_devices` and `--eval_mesh`, shared with run_simulation_flow."""
+    parser.add_argument("--dp", default=0, type=int, help="data-parallel device count (0/1 = single device)")
+    parser.add_argument("--restart_mode", choices=["seq", "vmap", "shard"], default="seq", type=str,
+                        help="seq: one restart after another; vmap: every restart in one batched program; shard: "
+                             "vmap with the restarts spread over ranks (no collective between restarts)")
+    parser.add_argument("--restart_devices", default=0, type=int,
+                        help="device count for --restart_mode=shard (default n_restart)")
+    parser.add_argument("--eval_mesh", default=None, type=str,
+                        help="'DPxMC' (e.g. 4x2): evaluate on a 2-D patients-x-MC device mesh")
+
+
+def parse_eval_mesh(text):
+    return tuple(int(x) for x in text.split("x")) if text else None
 
 
 def main(argv=None):
@@ -229,7 +288,7 @@ def main(argv=None):
         curve_path=args.curve_path,
         events_path=args.events_path,
         dp_devices=args.dp if args.dp > 1 else None,
-        eval_mesh=tuple(int(x) for x in args.eval_mesh.split("x")) if args.eval_mesh else None,
+        eval_mesh=parse_eval_mesh(args.eval_mesh),
         lockstep=args.step_control == "lockstep",
         restart_mode=args.restart_mode,
         restart_devices=args.restart_devices or None,

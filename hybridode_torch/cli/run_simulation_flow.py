@@ -12,8 +12,9 @@ package loads.
 
 It runs on the GPU; `--device c` asks for the CPU. All noise comes from one
 CPU `torch.Generator` seeded with `--seed`, drawn as `run_simulation` draws
-it. `--restart_mode vmap` trains every restart in one batched program. Not
-ported: `--restart_mode shard` (ROADMAP.md, queue 1, item 3).
+it. `--restart_mode vmap` trains every restart in one batched program;
+`--dp`, `--restart_mode shard` with `--restart_devices`, and `--eval_mesh`
+run on a world of ranks as in `run_simulation`.
 """
 
 from __future__ import annotations
@@ -21,24 +22,32 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..config import EvalConfig, OptimConfig
 from ..data import SyntheticCohort
 from . import common
-from .run_simulation import _refuse_unported, fit_and_evaluate
+from .run_simulation import add_parallel_flags, fit_and_evaluate, parse_eval_mesh
 
 
 def run(seed, eval_only, data_path, sample, data_config, path, optim_config, eval_config, num_flows=4, mc_size=50,
         arg_itr=None, curve_path=None, events_path=None, val_criterion="forecast", restart_mode="seq",
-        restart_devices=None, device=None):
+        restart_devices=None, device=None, dp_devices=None, eval_mesh=None):
     """Train n_restart times, then evaluate; -> (params, model, the six numbers of `evaluate`).
 
-    `restart_devices` belongs to the unported `--restart_mode shard` and is
-    accepted for signature parity.
+    `dp_devices`, `restart_mode="shard"` with `restart_devices` and
+    `eval_mesh` as in `run_simulation.run`: a run that needs more than one
+    rank starts them and returns rank 0's result.
     """
+    kwargs = dict(locals())
     device = resolve_device(device)
-    _refuse_unported(None, None, restart_mode)
+    world = common.check_parallel_flags(restart_mode=restart_mode, n_restart=optim_config.n_restart,
+                                        dp_devices=dp_devices, restart_devices=restart_devices, eval_mesh=eval_mesh,
+                                        batch_size=optim_config.batch_size, init_path=None, eval_only=eval_only,
+                                        device=device)
+    if world > 1 and not dist.is_initialized():
+        return common.launch_run(run, kwargs, world, device)
     generator = torch.Generator().manual_seed(seed)
 
     dg = SyntheticCohort.load(data_path, device=device)
@@ -52,7 +61,8 @@ def run(seed, eval_only, data_path, sample, data_config, path, optim_config, eva
     params, scores = fit_and_evaluate(model, dg, generator, eval_only=eval_only, init_path=None, niters=niters,
                                       path=path, optim_config=optim_config, eval_config=eval_config,
                                       val_criterion=val_criterion, curve_path=curve_path, events_path=events_path,
-                                      device=device, restart_mode=restart_mode)
+                                      device=device, restart_mode=restart_mode, dp_devices=dp_devices,
+                                      restart_devices=restart_devices, eval_mesh=eval_mesh)
     return params, model, scores
 
 
@@ -78,10 +88,7 @@ def main(argv=None):
     parser.add_argument("--curve_path", default=None, type=str,
                         help="write iter,val_loss,train_loss CSV (exp_flow.csv format)")
     parser.add_argument("--events_path", default=None, type=str, help="append JSONL training events")
-    parser.add_argument("--restart_mode", choices=["seq", "vmap", "shard"], default="seq", type=str,
-                        help="seq: one restart after another; vmap: every restart in one batched program "
-                             "(shard: not ported)")
-    parser.add_argument("--restart_devices", default=0, type=int, help="for --restart_mode=shard (not ported)")
+    add_parallel_flags(parser)
     args = parser.parse_args(argv)
 
     data_config = common.resolve_data_config(args.data_config, args.sample)
@@ -89,7 +96,8 @@ def main(argv=None):
     run(args.seed, args.eval == "y", args.data_path, args.sample, data_config, args.path, optim_config,
         EvalConfig(t0=args.t0), args.num_flows, args.mc_size, args.arg_itr, curve_path=args.curve_path,
         events_path=args.events_path, val_criterion=args.val_criterion, restart_mode=args.restart_mode,
-        restart_devices=args.restart_devices or None, device="cpu" if args.device == "c" else "cuda")
+        restart_devices=args.restart_devices or None, device="cpu" if args.device == "c" else "cuda",
+        dp_devices=args.dp if args.dp > 1 else None, eval_mesh=parse_eval_mesh(args.eval_mesh))
 
 
 if __name__ == "__main__":

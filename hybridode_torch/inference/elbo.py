@@ -118,6 +118,12 @@ def draw_noise(model: VIModel, batch_size: int, generator: torch.Generator, devi
     return eps, torch.randn((model.mc_size, batch_size, D), generator=generator).to(device)
 
 
+def draw_loss_noise(model: VIModel, batch_size: int, generator: torch.Generator, device):
+    """The noise `loss_fn` draws for a batch of `batch_size`: `draw_noise`'s, the flow's always (its decoded
+    latent is a sample)."""
+    return draw_noise(model._replace(elbo=True) if model.kind == "flow" else model, batch_size, generator, device)
+
+
 def sim_loss(params, model: VIModel, batch, generator: Optional[torch.Generator] = None, *, eps=None,
              eps_kl=None):
     """ELBO of the simulation track: masked squared error of the decode plus the KL.

@@ -68,8 +68,8 @@ import torch
 from ..solvers import dopri5
 from ..utils.logging import CSVCurveLogger, JSONLLogger
 from . import checkpoint as ckpt
-from .elbo import VIModel, draw_noise, forecast_loss, init_vi, loss_fn
-from .train import unfreeze_expert
+from .elbo import VIModel, draw_loss_noise, init_vi, loss_fn
+from .train import check_dp_divisibility, reload_best, unfreeze_expert
 
 _LAST_FLUSH_SINK = None  # the last restart's sink, kept for tests and observability
 _LAST_RUN = None  # the last `_Run`, kept for measurement: its graphs can be replayed and traced
@@ -124,11 +124,6 @@ def _predraw_val_idx(val_n, batch_size, val_chunks):
     return np.stack([np.arange(c * batch_size, c * batch_size + vrow) for c in range(val_chunks)]).astype(np.int64)
 
 
-def _draws(model: VIModel, width: int, generator):
-    """The noise `loss_fn` draws for a batch of `width` (the flow's always: its decoded latent is a sample)."""
-    return draw_noise(model._replace(elbo=True) if model.kind == "flow" else model, width, generator, "cpu")
-
-
 def _predraw_noise(model: VIModel, generator, niters, test_freq, width, val_chunks, val_width, val_criterion):
     """The host loop's draws from `generator`, call by call in its order and shapes.
 
@@ -139,11 +134,11 @@ def _predraw_noise(model: VIModel, generator, niters, test_freq, width, val_chun
     train, val, after_train, after_all = [], [], [], []
     state = generator.get_state()
     for itr in range(1, niters + 1):
-        train.append(_draws(model, width, generator))
+        train.append(draw_loss_noise(model, width, generator, "cpu"))
         state = generator.get_state() if train[-1][0] is not None else state
         after_train.append(state)
         if itr % test_freq == 0 and val_criterion == "elbo":
-            val.append([_draws(model, val_width, generator) for _ in range(val_chunks)])
+            val.append([draw_loss_noise(model, val_width, generator, "cpu") for _ in range(val_chunks)])
             state = generator.get_state() if val[-1][0][0] is not None else state
         after_all.append(state)
 
@@ -254,18 +249,24 @@ class _Run:
     """One restart, or R of them along a leading lane axis, with every piece of loop state on the device.
 
     `grad_fn(batch, eps, eps_kl) -> (loss of shape lanes, grads of leaves)`;
-    `eval_fn(vbatch, eps, eps_kl) -> loss of shape lanes`; `gather(idx)` the
-    training batch of indices `idx`. `idx` (niters, *lanes, B) and the noise
-    (leading axis: iteration, or window then chunk) live on the device.
+    `eval_fn(vbatch, eps, eps_kl) -> terms of shape lanes + (k,)`: the loss
+    (k = 1), or with `forecast` the masked squared-error sum and mask count
+    (k = 2); `gather(idx)` the training batch of indices `idx`. `idx`
+    (niters, *lanes, B) and the noise (leading axis: iteration, or window then
+    chunk) live on the device. `mean`, under data parallelism, a `_DataMean`:
+    `grad_fn` already averages; a validation sums its chunks' terms over the
+    data axis in one all-reduce and divides once (the ELBO by the axis size,
+    the forecast's error sum by its mask count).
     """
 
     def __init__(self, *, leaves, lr, grad_fn, eval_fn, gather, lanes, val_batches, idx, noise, val_noise,
-                 niters, test_freq, early_stop, best_on_disk, capture, events, to_params):
+                 niters, test_freq, early_stop, best_on_disk, capture, events, to_params, forecast, mean=None):
         device = leaves[0].device
         self.leaves, self.adam, self.gather = leaves, _Adam(leaves, lr), gather
         self.grad_fn, self.eval_fn = grad_fn, eval_fn
         self.lanes, self.val_batches, self.early_stop = tuple(lanes), val_batches, early_stop
         self.niters, self.test_freq, self.to_params, self.events = niters, test_freq, to_params, events
+        self.forecast, self.mean = forecast, mean
         self.idx, self.noise, self.val_noise = idx, noise, val_noise
         self.itrs = torch.arange(1, niters + 1, device=device)
         cap = max(1, niters // test_freq)
@@ -315,10 +316,15 @@ class _Run:
 
     @torch.no_grad()
     def _validate(self):
+        terms = torch.stack([self.eval_fn(vbatch, *(None if n is None else n[c] for n in self.s_val_noise))
+                             for c, vbatch in enumerate(self.val_batches)])  # (chunks, *lanes, k)
+        n = 1
+        if self.mean is not None:
+            terms, n = self.mean.terms(terms), self.mean.n
         total = torch.zeros(self.lanes, dtype=torch.float64, device=self.alive.device)
-        for c, vbatch in enumerate(self.val_batches):
-            noise = (None if n is None else n[c] for n in self.s_val_noise)
-            cl = self.eval_fn(vbatch, *noise).to(torch.float64)
+        for t in terms:
+            cl = t[..., 0] / torch.clamp(t[..., 1], min=1.0) if self.forecast else t[..., 0] / n
+            cl = cl.to(torch.float64)
             total = total + torch.where(torch.isfinite(cl), cl, 1e9)
         alive = self.alive
         better_run = alive & (total < self.best_run)
@@ -382,10 +388,65 @@ class _Run:
     def best_params(self, lane=None):
         return self.to_params(self.best, lane)
 
+    def packed(self) -> torch.Tensor:
+        """The buffers the end of a run reads, as one float64 tensor of shape lanes + (6 + 3 cap,) (every value
+        exact in float64), which one collective can gather across lanes."""
+        return torch.cat([getattr(self, k).to(torch.float64)[..., None] for k in _SCALARS]
+                         + [getattr(self, k).to(torch.float64) for k in _CURVES], dim=-1)
+
     def host(self) -> dict:
         """The buffers, read once at the end."""
-        names = ("best_od", "best_itr", "improved", "cit", "cval", "ctr", "n_vals", "nf", "last_itr")
-        return {k: getattr(self, k).cpu().numpy() for k in names}
+        return _unpack(self.packed().cpu())
+
+
+_SCALARS = {"best_od": torch.float64, "best_itr": torch.int64, "improved": torch.bool, "n_vals": torch.int64,
+            "nf": torch.bool, "last_itr": torch.int64}
+_CURVES = {"cit": torch.int64, "cval": torch.float64, "ctr": torch.float32}
+
+
+def _unpack(packed: torch.Tensor) -> dict:
+    """`_Run.packed`'s tensor (on the CPU) -> the buffers as numpy arrays in their own dtypes."""
+    cap = (packed.shape[-1] - len(_SCALARS)) // len(_CURVES)
+    out = {k: packed[..., i].to(dtype).numpy() for i, (k, dtype) in enumerate(_SCALARS.items())}
+    for j, (k, dtype) in enumerate(_CURVES.items()):
+        lo = len(_SCALARS) + j * cap
+        out[k] = packed[..., lo:lo + cap].to(dtype).numpy()
+    return out
+
+
+class _DataMean:
+    """Means over the data axis of a mesh: a step's loss and gradients through one `FlatMean` (one all-reduce,
+    made at the first step), a validation's chunk terms through one all-reduce of their sums."""
+
+    def __init__(self, mesh):
+        from ..parallel.mesh import axis
+
+        self.group, _, self.n = axis(mesh, "data")
+        self.flat = None
+
+    def step(self, loss, grads):
+        from ..parallel.mesh import FlatMean
+
+        if self.flat is None:
+            self.flat = FlatMean([loss] + list(grads), self.group, self.n)
+        out = self.flat([loss] + list(grads))
+        return out[0], out[1:]
+
+    def terms(self, t):
+        from ..parallel.mesh import all_reduce_sum
+
+        return all_reduce_sum(t, self.group)
+
+
+def _data_block(mesh, idx, val_idx, noise, val_noise):
+    """This rank's columns of the index streams and rows of the noise, on the data axis of `mesh`."""
+    from ..parallel.mesh import axis, shard_noise
+
+    _, i, n = axis(mesh, "data")
+    check_dp_divisibility(n, idx.shape[-1], val_idx.shape[-1])
+    b, vb = idx.shape[-1] // n, val_idx.shape[-1] // n
+    return (np.ascontiguousarray(idx[..., i * b:(i + 1) * b]), np.ascontiguousarray(val_idx[..., i * vb:(i + 1) * vb]),
+            shard_noise(noise, mesh), shard_noise(val_noise, mesh))
 
 
 def _replay_logs(out, curve, events, verbose, restart=None):
@@ -414,7 +475,7 @@ def _flush_every(flush_every) -> int:
 def fused_training_loop(
     niters, data_generator, model: VIModel, params, batch_size, lr, test_freq, generator,
     best_on_disk=1e9, early_stop=5, path="model/", shuffle=True, train_fold="train", train_expert=False,
-    verbose=True, curve_path=None, events_path=None, val_criterion="elbo", val_t0=5, flush_every=None,
+    verbose=True, curve_path=None, events_path=None, val_criterion="elbo", val_t0=5, flush_every=None, mesh=None,
 ):
     """Drop-in replacement for the host loop of `variational_training_loop`; -> (params, best_on_disk, wall).
 
@@ -424,8 +485,20 @@ def fused_training_loop(
     writes it at every K-th window's read when it improves on what is on
     disk; that costs a read of the best loss per K windows and changes no
     device math.
+
+    With a 1-D "data" `mesh` (JAX's DP branch, fused.py:142-175, 311-347)
+    each rank gathers its columns of the batch-index streams and takes its
+    rows of the pre-drawn global noise; a step averages the loss and the
+    gradients over the mesh in one all-reduce (captured into the step's
+    graph on CUDA), a validation its chunks' terms in another. Every rank
+    takes the same decisions; rank 0 alone writes and logs.
     """
     global _LAST_FLUSH_SINK, _LAST_RUN
+    from ..parallel.launch import is_writer
+    from ..parallel.mesh import forecast_terms
+
+    writer = is_writer()
+    verbose = verbose and writer
     device = next(params.parameters()).device
     capture = captures(model, device)
     if train_expert:
@@ -433,7 +506,7 @@ def fused_training_loop(
     leaves = [p for p in params.parameters() if p.requires_grad]
     fold, fold_n, train_chunk, val_chunks, val_n = _fold_geometry(data_generator, batch_size, train_fold)
 
-    curve, events = CSVCurveLogger(curve_path), JSONLLogger(events_path)
+    curve, events = CSVCurveLogger(curve_path if writer else None), JSONLLogger(events_path if writer else None)
     try:
         rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=generator)))
         start = time.time()
@@ -441,15 +514,20 @@ def fused_training_loop(
         val_idx = _predraw_val_idx(val_n, batch_size, val_chunks)
         noise, val_noise, after_train, after_all = _predraw_noise(
             model, generator, niters, test_freq, idx.shape[-1], val_chunks, val_idx.shape[-1], val_criterion)
+        mean = None
+        if mesh is not None:
+            idx, val_idx, noise, val_noise = _data_block(mesh, idx, val_idx, noise, val_noise)
+            mean = _DataMean(mesh)
 
         def grad_fn(batch, eps, eps_kl):
             loss = loss_fn(params, model, batch, eps=eps, eps_kl=eps_kl)
-            return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+            out = loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+            return out if mean is None else mean.step(*out)
 
         def eval_fn(vbatch, eps, eps_kl):
             if val_criterion == "forecast":
-                return forecast_loss(params, model, vbatch, val_t0)
-            return loss_fn(params, model, vbatch, eps=eps, eps_kl=eps_kl)
+                return forecast_terms(params, model, vbatch, val_t0, mesh)
+            return loss_fn(params, model, vbatch, eps=eps, eps_kl=eps_kl).reshape(1)
 
         def to_params(best, lane=None):
             out = copy.deepcopy(params)
@@ -467,9 +545,9 @@ def fused_training_loop(
                    idx=torch.as_tensor(idx, device=device), noise=tuple(map(to_device, noise)),
                    val_noise=tuple(map(to_device, val_noise)), niters=niters, test_freq=test_freq,
                    early_stop=early_stop, best_on_disk=best_on_disk, capture=capture, events=events,
-                   to_params=to_params)
+                   to_params=to_params, forecast=val_criterion == "forecast", mean=mean)
         every = _flush_every(flush_every)
-        sink = _FlushSink(path, model.model_name, every, best_on_disk) if every > 0 else None
+        sink = _FlushSink(path, model.model_name, every, best_on_disk) if every > 0 and writer else None
         _LAST_FLUSH_SINK, _LAST_RUN = sink, run
         run.run(sink)
         out = run.host()
@@ -479,17 +557,14 @@ def fused_training_loop(
         _replay_logs(out, curve, events, verbose)
         if bool(out["improved"]):
             best_on_disk = float(out["best_od"])
-            ckpt.save_checkpoint(path, model.model_name, run.best_params(), int(out["best_itr"]), best_on_disk)
+            if writer:
+                ckpt.save_checkpoint(path, model.model_name, run.best_params(), int(out["best_itr"]), best_on_disk)
         events.log("done", wall=wall, best_on_disk=float(best_on_disk), captured=capture)
     finally:
         curve.close()
         events.close()
 
-    try:
-        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
-    except FileNotFoundError:
-        ckpt.save_checkpoint(path, model.model_name, params, 0, best_on_disk)
-        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
+    best_params, best_on_disk = reload_best(path, model.model_name, params, best_on_disk, device, mesh)
     if verbose:
         print("Time: {}".format(wall))
         print("Overall best loss: {:.6f}".format(best_on_disk))
@@ -510,7 +585,8 @@ class _Functional(torch.nn.Module):
 def fused_experiment_loop(
     niters, data_generator, model: VIModel, restart_generators, batch_size, lr, test_freq, best_on_disk=1e9,
     early_stop=5, path="model/", shuffle=True, train_fold="train", train_expert=False, verbose=True,
-    curve_path=None, events_path=None, val_criterion="elbo", val_t0=5, device=None,
+    curve_path=None, events_path=None, val_criterion="elbo", val_t0=5, device=None, restart_devices=None,
+    dp_devices=None, mesh=None,
 ):
     """Run every restart at once as one batched program (`--restart_mode vmap`); -> (params, best_on_disk, wall).
 
@@ -523,30 +599,67 @@ def fused_experiment_loop(
     checkpointed once at the end, which selects the checkpoint the sequential
     chain's best-on-disk threading selects. The curve CSV keeps the last
     restart's rows, as the sequential CLI's does.
+
+    `restart_devices` and `dp_devices` (`--restart_mode shard`, JAX's
+    fused.py:351-445) spread the lanes over a 2-D (restart, data) mesh of the
+    first restart_devices x dp_devices ranks (`mesh`, when it is already
+    made): each rank trains its block of the lanes with no collective between
+    lanes (`restart_devices` must divide the restarts) and, over `dp_devices`
+    ranks, its block of every lane's batch: the vmapped gradients of its lanes
+    are averaged over the lane's data group in one all-reduce of the stacked
+    buffer, then Adam. At the end the mesh's ranks wait for each other
+    without a collective (`wait_idle`: lanes may stop early), the lanes' bests
+    are gathered, the winner's parameters broadcast, and rank 0 writes the
+    one checkpoint. Every rank of the world calls this when it makes the
+    mesh; ranks outside the mesh return at once (params None).
     """
+    return _experiment_loop(**locals())
+
+
+def _experiment_loop(niters, data_generator, model, restart_generators, batch_size, lr, test_freq, best_on_disk,
+                     early_stop, path, shuffle, train_fold, train_expert, verbose, curve_path, events_path,
+                     val_criterion, val_t0, device, restart_devices, dp_devices, mesh, init_params=None):
+    """`fused_experiment_loop`; `init_params`, one parameter tree per restart, replaces the lanes' random
+    initialisation (the dryrun's pinned parameters)."""
     global _LAST_RUN
     if getattr(model.decoder_spec, "use_adjoint", False):
         raise NotImplementedError("--restart_mode vmap over the lockstep adjoint solver is not ported yet "
                                   "(ROADMAP.md, queue 1, item 6)")
     from .. import resolve_device
+    from ..parallel.launch import is_writer, wait_idle
+    from ..parallel.mesh import all_gather_rows, axis, barrier, forecast_terms, make_mesh_2d, member, replicate
 
     device = resolve_device(device)
     n_restart = len(restart_generators)
+    if mesh is None and (int(restart_devices or 0) > 1 or int(dp_devices or 0) > 1):
+        mesh = make_mesh_2d(max(1, int(restart_devices or 0)), max(1, int(dp_devices or 0)), ("restart", "data"))
+    if mesh is not None and not member(mesh):
+        return None, best_on_disk, 0.0
+    r_group, i_r, n_r = axis(mesh, "restart") if mesh is not None else (None, 0, 1)
+    dp = axis(mesh, "data")[2] if mesh is not None else 1
+    if n_restart % n_r:
+        raise ValueError(f"n_restart {n_restart} not divisible by restart_devices {n_r}")
+    per = n_restart // n_r
+    local = range(i_r * per, (i_r + 1) * per)  # this rank's lanes
+    writer = is_writer()
+    verbose = verbose and writer
     capture = captures(model, device)
     fold, fold_n, train_chunk, val_chunks, val_n = _fold_geometry(data_generator, batch_size, train_fold)
 
     start = time.time()
     modules, idx, draws = [], [], []
-    for gen_init, gen_train in restart_generators:
-        modules.append(init_vi(gen_init, model, device=device))
+    for r in local:
+        gen_init, gen_train = restart_generators[r]
+        modules.append(init_vi(gen_init, model, device=device) if init_params is None
+                       else copy.deepcopy(init_params[r]).to(device))
         if train_expert:
             unfreeze_expert(modules[-1])
         rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=gen_train)))
         idx.append(_predraw_train_idx(rng, fold_n, train_chunk, niters, batch_size, shuffle))
     val_idx = _predraw_val_idx(val_n, batch_size, val_chunks)
-    for (_, gen_train), lane_idx in zip(restart_generators, idx):
-        draws.append(_predraw_noise(model, gen_train, niters, test_freq, lane_idx.shape[-1], val_chunks,
-                                    val_idx.shape[-1], val_criterion))
+    for r, lane_idx in zip(local, idx):
+        draws.append(_predraw_noise(model, restart_generators[r][1], niters, test_freq, lane_idx.shape[-1],
+                                    val_chunks, val_idx.shape[-1], val_criterion))
 
     stacked, _ = torch.func.stack_module_state(modules)
     train = {n: t for n, t in stacked.items() if t.requires_grad}
@@ -565,19 +678,25 @@ def fused_experiment_loop(
 
     lane_grad = torch.func.grad_and_value(
         call(lambda tree, batch, eps, eps_kl: loss_fn(tree, model, batch, eps=eps, eps_kl=eps_kl)))
+    data_mesh = mesh if dp > 1 else None
     if val_criterion == "forecast":
-        lane_eval = call(lambda tree, vbatch, eps, eps_kl: forecast_loss(tree, model, vbatch, val_t0))
+        lane_eval = call(lambda tree, vbatch, eps, eps_kl: forecast_terms(tree, model, vbatch, val_t0, data_mesh))
     else:
-        lane_eval = call(lambda tree, vbatch, eps, eps_kl: loss_fn(tree, model, vbatch, eps=eps, eps_kl=eps_kl))
+        lane_eval = call(lambda tree, vbatch, eps, eps_kl: loss_fn(tree, model, vbatch, eps=eps,
+                                                                   eps_kl=eps_kl).reshape(1))
 
     def noise_dims(*noise):
         return tuple(None if n is None else 0 for n in noise)
+
+    # Collectives are not batched by vmap: the lanes' gradients leave it stacked and are averaged after it.
+    mean = _DataMean(mesh) if dp > 1 else None
 
     def grad_fn(batch, eps, eps_kl):
         with dopri5.full_budget():  # a vmapped solve cannot read `finished` on the host
             grads, loss = torch.func.vmap(lane_grad, in_dims=(0, 0, 0) + noise_dims(eps, eps_kl))(
                 train, frozen, batch, eps, eps_kl)
-        return loss.detach(), [grads[n] for n in train]
+        out = loss.detach(), [grads[n] for n in train]
+        return out if mean is None else mean.step(*out)
 
     def eval_fn(vbatch, eps, eps_kl):
         with dopri5.full_budget():
@@ -596,27 +715,34 @@ def fused_experiment_loop(
                 p.copy_(values[n][lane])
         return out
 
-    noise = tuple(None if parts[0] is None else torch.stack(parts, dim=1).to(device)
-                  for parts in zip(*(d[0] for d in draws)))
-    val_noise = tuple(None if parts[0] is None else torch.stack(parts, dim=2).to(device)
-                      for parts in zip(*(d[1] for d in draws)))
-    events = JSONLLogger(events_path)
+    lane_idx = np.stack(idx, axis=1)
+    noise = tuple(None if parts[0] is None else torch.stack(parts, dim=1) for parts in zip(*(d[0] for d in draws)))
+    val_noise = tuple(None if parts[0] is None else torch.stack(parts, dim=2) for parts in zip(*(d[1] for d in draws)))
+    if mean is not None:
+        lane_idx, val_idx, noise, val_noise = _data_block(mesh, lane_idx, val_idx, noise, val_noise)
+    events = JSONLLogger(events_path if writer else None)
     run = _Run(leaves=leaves, lr=lr, grad_fn=grad_fn, eval_fn=eval_fn, gather=gather,
-               lanes=(n_restart,), val_batches=_val_batches(data_generator, val_idx, device),
-               idx=torch.as_tensor(np.stack(idx, axis=1), device=device), noise=noise, val_noise=val_noise,
+               lanes=(per,), val_batches=_val_batches(data_generator, val_idx, device),
+               idx=torch.as_tensor(lane_idx, device=device),
+               noise=tuple(None if n is None else n.to(device) for n in noise),
+               val_noise=tuple(None if n is None else n.to(device) for n in val_noise),
                niters=niters, test_freq=test_freq, early_stop=early_stop, best_on_disk=1e9, capture=capture,
-               events=events, to_params=to_params)
+               events=events, to_params=to_params, forecast=val_criterion == "forecast", mean=mean)
     _LAST_RUN = run
     run.run()
-    out = run.host()
+    packed = run.packed()
+    if n_r > 1:
+        wait_idle("lanes", mesh.mesh.flatten().tolist())
+    out = _unpack(all_gather_rows(packed, r_group, n_r).cpu())  # every lane's buffers, in lane order
     wall = time.time() - start
-    for r, (_, gen_train) in enumerate(restart_generators):
-        _restore_generator(gen_train, draws[r][2], draws[r][3], int(out["last_itr"][r]), bool(out["nf"][r]))
+    for j, r in enumerate(local):
+        _restore_generator(restart_generators[r][1], draws[j][2], draws[j][3], int(out["last_itr"][r]),
+                           bool(out["nf"][r]))
 
     lane_out = [{k: v[r] for k, v in out.items()} for r in range(n_restart)]
     for r in range(n_restart):
         _replay_logs(lane_out[r], None, events, verbose, restart=r)
-    curve = CSVCurveLogger(curve_path)
+    curve = CSVCurveLogger(curve_path if writer else None)
     _replay_logs(lane_out[-1], curve, JSONLLogger(None), False)
     curve.close()
 
@@ -631,17 +757,19 @@ def fused_experiment_loop(
             pass
     if bool(out["improved"][r_star]) and float(best_per[r_star]) < best_on_disk:
         best_on_disk = float(best_per[r_star])
-        ckpt.save_checkpoint(path, model.model_name, run.best_params(r_star), int(out["best_itr"][r_star]),
-                             best_on_disk)
+        owner, lane = divmod(r_star, per)
+        winner = run.best_params(lane if owner == i_r else 0)
+        if n_r > 1:  # from the winner's rank of this rank's column of the mesh
+            replicate(winner, r_group, owner)
+        barrier(mesh)  # every rank has read what was on disk before rank 0 writes
+        if writer:
+            ckpt.save_checkpoint(path, model.model_name, winner, int(out["best_itr"][r_star]), best_on_disk)
     events.log("done", wall=wall, best_on_disk=float(best_on_disk), captured=capture, restarts=n_restart)
     events.close()
 
-    try:
-        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
-    except FileNotFoundError:
-        # No restart ever validated finitely: the sequential loop would have saved restart 0's final state.
-        ckpt.save_checkpoint(path, model.model_name, to_params(leaves, 0), 0, best_on_disk)
-        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
+    # No restart ever validated finitely: the sequential loop would have saved restart 0's final state.
+    best_params, best_on_disk = reload_best(path, model.model_name, to_params(leaves, 0), best_on_disk, device,
+                                            mesh)
     if verbose:
         print("Time: {}".format(wall))
         print("Overall best loss: {:.6f}".format(best_on_disk))

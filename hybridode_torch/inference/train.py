@@ -14,7 +14,13 @@ host loop of `variational_training_loop` in hybridode/inference/train.py.
   loop's state on the device, one host read per validation window, on CUDA
   the step and the validation as CUDA graphs), which its tests hold equal to
   this host loop. `fused=False` or `HYBRIDODE_FUSED=0` keeps the host loop,
-  which checkpoints on every improvement. Data parallelism is not ported.
+  which checkpoints on every improvement.
+* Data parallelism (`dp_devices` above 1, or a 1-D "data" `mesh`) runs either
+  loop with the batch's patients split over the ranks of the mesh
+  (`parallel/mesh.py`; JAX's train.py:170-192 and fused.py): the global
+  batch's noise sliced by rows, one all-reduce of the gradients and the loss
+  a step, every rank taking the same decisions from the reduced losses, rank
+  0 alone writing checkpoints and logs.
 * Solver failure maps to finite-loss gates: a non-finite training loss ends
   the restart, a non-finite validation chunk adds 1e9.
 
@@ -74,6 +80,37 @@ def make_eval_loss(model: VIModel, val_criterion: str = "elbo", val_t0: int = 5)
     return eval_loss
 
 
+def check_dp_divisibility(n: int, train_width: int, val_width: int) -> None:
+    """The widths a data-parallel loop splits over `n` ranks (JAX's fused.py:129-139 messages)."""
+    if train_width % n:
+        raise ValueError(f"train mini-batch width {train_width} not divisible by dp_devices {n}")
+    if val_width % n:
+        raise ValueError(f"validation chunk width {val_width} not divisible by dp_devices {n}")
+
+
+def reload_best(path: str, model_name: str, params, best_on_disk: float, device, mesh=None):
+    """-> (the best checkpoint at `path` on `device`, its loss); when none was written, `params` is saved there
+    first (itr 0, `best_on_disk`).
+
+    With a `mesh`, rank 0 alone writes and every rank of the mesh reads after
+    its write; they all take the same branch, since the file's presence is
+    looked up between two barriers.
+    """
+    from ..parallel.launch import is_writer
+    from ..parallel.mesh import barrier
+
+    full = path + model_name
+    barrier(mesh)
+    missing = not os.path.exists(full)
+    barrier(mesh)
+    if missing:
+        if is_writer():
+            ckpt.save_checkpoint(path, model_name, params, 0, best_on_disk)
+        barrier(mesh)
+    best_params, _, best_on_disk = ckpt.load_checkpoint(path, model_name, device)
+    return best_params, best_on_disk
+
+
 def variational_training_loop(
     niters: int,
     data_generator: Any,
@@ -96,6 +133,7 @@ def variational_training_loop(
     val_t0: int = 5,
     dp_devices: int | None = None,
     fused: bool | None = None,
+    mesh=None,
 ):
     """Train `params` in place; return (best params reloaded from disk, best_on_disk, wall seconds).
 
@@ -111,9 +149,21 @@ def variational_training_loop(
     port), as the JAX package does; it checkpoints once at the end of the
     restart (and every `HYBRIDODE_FLUSH_EVERY`-th window). False runs this
     host loop.
+
+    `dp_devices` above 1 trains data-parallel over a 1-D "data" mesh of the
+    first `dp_devices` ranks of the world (`parallel.make_mesh`), `mesh` over
+    a mesh already made (of one rank too); every rank of the mesh calls this
+    with the same arguments (with `dp_devices`, every rank of the world, since
+    making the mesh is collective: ranks outside it return at once). The
+    train and validation widths must divide the mesh's size.
     """
-    if dp_devices is not None and dp_devices > 1:
-        raise NotImplementedError("data-parallel training is not ported yet (ROADMAP.md, queue 1, item 3)")
+    from ..parallel.launch import is_writer
+    from ..parallel.mesh import make_mesh, member
+
+    if mesh is None and dp_devices is not None and dp_devices > 1:
+        mesh = make_mesh(dp_devices)
+    if mesh is not None and not member(mesh):
+        return params, best_on_disk, 0.0
     if fused is None:
         fused = os.environ.get("HYBRIDODE_FUSED", "1") != "0"
     if fused and hasattr(data_generator, "_fold"):
@@ -123,10 +173,27 @@ def variational_training_loop(
             niters=niters, data_generator=data_generator, model=model, params=params, batch_size=batch_size,
             lr=lr, test_freq=test_freq, generator=generator, best_on_disk=best_on_disk, early_stop=early_stop,
             path=path, shuffle=shuffle, train_fold=train_fold, train_expert=train_expert, verbose=verbose,
-            curve_path=curve_path, events_path=events_path, val_criterion=val_criterion, val_t0=val_t0)
+            curve_path=curve_path, events_path=events_path, val_criterion=val_criterion, val_t0=val_t0, mesh=mesh)
     device = next(params.parameters()).device
     optimizer = make_optimizer(lr, params, train_expert)
-    eval_loss = make_eval_loss(model, val_criterion, val_t0)
+    if mesh is None:
+        eval_loss = make_eval_loss(model, val_criterion, val_t0)
+
+        def step(batch):
+            return train_step(params, optimizer, model, batch, generator)
+    else:
+        from ..parallel.mesh import make_dp_eval_loss, make_dp_train_step
+
+        n = mesh.size()
+        check_dp_divisibility(n, batch_size, min(batch_size, data_generator.val_size))
+        dp_step = make_dp_train_step(model, optimizer, mesh)
+        eval_loss = make_dp_eval_loss(model, mesh, val_criterion=val_criterion, val_t0=val_t0)
+
+        def step(batch):
+            return dp_step(params, batch, generator)
+
+    writer = is_writer()
+    verbose = verbose and writer
 
     best_loss = 1e9
     early_stop_counter = 0
@@ -134,8 +201,8 @@ def variational_training_loop(
     train_chunk = max(1, fold_size // batch_size)
     val_chunks = max(1, data_generator.val_size // batch_size)
 
-    curve = CSVCurveLogger(curve_path)
-    events = JSONLLogger(events_path)
+    curve = CSVCurveLogger(curve_path if writer else None)
+    events = JSONLLogger(events_path if writer else None)
     try:
         rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=generator)))
         start = time.time()
@@ -146,7 +213,7 @@ def variational_training_loop(
                 batch = data_generator.get_mini_batch(train_fold, batch_size, rng)
             else:
                 batch = data_generator.get_split(train_fold, batch_size, itr % train_chunk)
-            loss = float(train_step(params, optimizer, model, batch, generator))
+            loss = float(step(batch))
             events.log("step", itr=itr, seconds=time.perf_counter() - t_step, train_loss=loss)
 
             if not np.isfinite(loss):
@@ -172,7 +239,8 @@ def variational_training_loop(
 
                 if total_loss < best_on_disk:
                     best_on_disk = total_loss
-                    ckpt.save_checkpoint(path, model.model_name, params, itr, best_on_disk)
+                    if writer:
+                        ckpt.save_checkpoint(path, model.model_name, params, itr, best_on_disk)
 
             if early_stop_counter >= early_stop:
                 break
@@ -183,12 +251,7 @@ def variational_training_loop(
         curve.close()
         events.close()
 
-    try:
-        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
-    except FileNotFoundError:
-        ckpt.save_checkpoint(path, model.model_name, params, 0, best_on_disk)
-        best_params, _, best_on_disk = ckpt.load_checkpoint(path, model.model_name, device)
-
+    best_params, best_on_disk = reload_best(path, model.model_name, params, best_on_disk, device, mesh)
     if verbose:
         print("Time: {}".format(wall))
         print("Overall best loss: {:.6f}".format(best_on_disk))

@@ -78,3 +78,39 @@ def test_phase_9_switches_the_training_loop_and_restores_the_switch(monkeypatch)
             assert os.environ["HYBRIDODE_FUSED"] == "1"
         assert os.environ["HYBRIDODE_FUSED"] == "0"
     assert "HYBRIDODE_FUSED" not in os.environ
+
+
+def test_phase_10_reads_the_dryrun_ok_lines():
+    """`_dryrun_wait` finds every OK line the 4-rank dryrun prints, and names the one a failed run left out."""
+    import subprocess
+    import sys
+
+    def fake(lines, rc):
+        code = f"import sys; print({lines!r}); sys.exit({rc})"
+        return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+    full = "\n".join(w if w.endswith("OK") else w + "1.0000 OK" for w in chip_smoke.DRYRUN_LINES)
+    got = chip_smoke._dryrun_wait(fake(full, 0), 0.0)
+    assert got["rc"] == 0 and got["missing"] == [] and len(got["ok_lines"]) == len(chip_smoke.DRYRUN_LINES) == 7
+    cut = "\n".join(full.splitlines()[:-1])
+    got = chip_smoke._dryrun_wait(fake(cut, 1), 0.0)
+    assert got["rc"] == 1 and got["missing"] == ["dryrun_multichip(4): loss="]
+
+
+def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
+    """The `kernels` JSON carries phase 10's paths beside the others: `evaluate_sharded` (4 launches, one a chunk)
+    and the DP fused training (0)."""
+    row = dict(max_abs_err=1e-6, ms=0.19, device_ms=0.06, plain_ms=260.0, bound_ms=0.0014, bound_by="operations")
+    rk4 = dict(roche_rk4_launches=4)
+    none = dict(roche_rk4_launches=0)
+    more = dict(evaluate_horizon=rk4, evaluate_ensemble_horizon=rk4, flow_evaluate=rk4, flow=none, members=none,
+                ensemble=none, residual=none, run_eval=none)
+    line = chip_smoke.kernels_line([row], 4, none, none, more, dict(train=none, create_data=none),
+                                   dict(roche_rk4_launches=dict(gpu=0, vmap=0)),
+                                   dict(evaluate_sharded=rk4, dp_fused=none))
+    (k,) = line["kernels"]
+    assert k["launches"] == 4 and k["launches_by_path"]["evaluate_sharded"] == 4
+    assert k["launches_by_path"]["fused_dp"] == 0 and k["launches_by_path"]["fused_vmap"] == 0
+    assert set(k) >= {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms"}

@@ -108,13 +108,19 @@ def test_main_parses_the_reference_flags(tmp_path, capsys):
     assert os.path.exists(str(tmp_path) + "/VI_LSTMEncoder_HybridDecoder.pkl")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--restart_mode", "vmap", "--step_control", "lockstep"], "item 6"),
-    (["--restart_mode", "shard"], "item 3"),
-    (["--dp", "2"], "item 3"),
-    (["--eval_mesh", "4x2"], "item 3"),
+# The parallel flags are ported (hybridode_torch/parallel/): what they cannot run raises JAX's ValueError before any
+# rank starts; the case ids keep the names these cases had while the flags raised NotImplementedError.
+@pytest.mark.parametrize("flags,error,match", [
+    pytest.param(["--restart_mode", "vmap", "--step_control", "lockstep"], NotImplementedError, "item 6",
+                 id="flags0-item 6"),
+    pytest.param(["--restart_mode", "shard", "--restart_devices", "2"], ValueError,
+                 "n_restart 3 not divisible by restart_devices 2", id="flags1-item 3"),
+    pytest.param(["--dp", "2", "--restart_mode", "vmap"], ValueError, "--restart_mode=vmap does not compose with --dp",
+                 id="flags2-item 3"),
+    pytest.param(["--eval_mesh", "4x2", "--batch_size", "50"], ValueError,
+                 r"batch_size 50 not divisible by the data mesh axis \(4\)", id="flags3-item 3"),
 ])
-def test_unported_flags_raise(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_flags_raise(flags, error, match, tmp_path):
+    with pytest.raises(error, match=match):
         main(["--device", "c", "--data_path", COHORT, "--path", str(tmp_path) + "/"] + flags)
     assert not list(tmp_path.iterdir())

@@ -120,9 +120,11 @@ def test_run_simulation_flow_prints_the_contract_and_jax_loads_its_checkpoint(sm
 
 @pytest.mark.parametrize("mode", ["shard"])
 def test_run_simulation_flow_refuses_unported_restart_modes(small_data, tmp_path, mode):
-    with pytest.raises(NotImplementedError, match="item 3"):
+    """`--restart_mode shard` is ported; a restart count its devices do not divide raises JAX's ValueError before
+    anything runs or is written."""
+    with pytest.raises(ValueError, match="n_restart 3 not divisible by restart_devices 2"):
         run_simulation_flow.main(["--device", "c", "--data_path", small_data, "--path", str(tmp_path) + "/",
-                                  "--restart_mode", mode])
+                                  "--restart_mode", mode, "--restart_devices", "2"])
     assert not list(tmp_path.iterdir())
 
 

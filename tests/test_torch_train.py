@@ -330,14 +330,15 @@ def test_nonfinite_training_loss_ends_the_restart(cohorts, tmp_path, capsys):
 
 
 def test_unported_training_modes_raise(cohorts):
-    """Data parallelism (queue 1, item 3) raises on the fused and the host loop alike."""
+    """Data parallelism over more ranks than the world holds raises JAX's mesh error, on the fused and the host
+    loop alike (outside a world there is one)."""
     _, c = cohorts
     m = build_sim_model("hybrid", DataConfig())
     params = elbo.init_vi(torch.Generator().manual_seed(0), m, device="cpu")
     common = dict(niters=1, data_generator=c, model=m, params=params, batch_size=B, lr=0.01, test_freq=1,
                   generator=torch.Generator().manual_seed(0))
     for fused in (True, False, None):
-        with pytest.raises(NotImplementedError, match="item 3"):
+        with pytest.raises(ValueError, match="requested a 2-device 'data' mesh but only 1 devices are available"):
             variational_training_loop(dp_devices=2, fused=fused, **common)
 
 
