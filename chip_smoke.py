@@ -34,7 +34,12 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    curves and between the four metrics (each must stay within TRAIN_RTOL).
    No kernel of the port is on this path (the RK4 kernel is forward-only):
    its launches there must stay 0. One training iteration is timed here and
-   profiled at the end (`profile` line).
+   profiled at the end (`profile` line). The `checkpoint_steps` probe: the
+   first training batch's per-patient DOPRI5 decode (batch 50, 256 trial
+   steps) with its gradient, without and with `checkpoint_steps` (each chunk
+   of 64 trial steps recomputed in the backward pass), in turns: the peak
+   device memory above what was allocated before, the seconds, and the two
+   gradients, which must be equal.
 6. Real: the real-data track on data_real/ (read only) at the full width of
    the ICU cohort's model (obs 28, 1 dose channel, 11 statics, encoder LSTM
    hidden 49, latent 20, field hidden 48, explicit Adams over 73 hourly
@@ -84,8 +89,18 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    accepted and recorded steps. On that batch, the `sim_loss` gradient with
    the adjoint against backprop through the same lockstep solve
    (`use_adjoint=False`), within ADJOINT_RTOL and ADJOINT_ATOL, each
-   backward timed. The RK4 kernel must not launch in this phase. One
-   lockstep training iteration is profiled at the end.
+   backward timed. The native C++ generator (`generate_data(backend=
+   "native")`, the training cohort of seed 123 on the host) against the
+   committed data_s123 (`cohort_faults`) and against the GPU file's latents
+   within NATIVE_RTOL / NATIVE_ATOL, with its seconds. The lockstep
+   restarts batched: `run_simulation.run(..., lockstep=True)` with
+   `restart_mode="vmap"` and `"seq"` (LOCKSTEP_RESTARTS restarts of
+   LOCKSTEP_VMAP_ITERS iterations, validation every LOCKSTEP_VMAP_TEST_FREQ,
+   the fused loop, uncaptured on the adjoint), their training seconds and
+   seconds an iteration, each restart's first validation and the best loss
+   within LOCKSTEP_VMAP_RTOL and the checkpoint's iteration equal. The RK4 kernel
+   must not launch in this phase. One lockstep training iteration is
+   profiled at the end.
 9. Fused, in a process of its own (with phase 10): the fused training loop
    (`inference/fused.py`: the loop's state on the device, one host read per
    validation window, on the GPU the step and the validation as CUDA graphs)
@@ -119,10 +134,14 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    `evaluate_sharded` of the hybrid at RK4 (random weights from the seed)
    on a 1 x 1 (data, mc) mesh of the test fold: EVAL_LAUNCHES kernel
    launches and `evaluate`'s four point metrics at 4 decimals, with its
-   seconds. `--dp 2` on the one-GPU machine: JAX's mesh error. The CPU
+   seconds. `--dp 2` on a one-GPU machine: JAX's mesh error. The CPU
    dryrun of DRYRUN_RANKS gloo ranks (`python -m
    hybridode_torch.parallel.dryrun`), run beside the GPU work: rc 0 and
-   every OK line. Multi-GPU scaling is not measured: one card.
+   every OK line. With 2 GPUs or more visible, after the world of one rank
+   has ended: the two-world check (`multigpu_study.two_worlds`: two 2-rank
+   `--dp 2` worlds in turn, each within MULTI_GPU_TIMEOUT seconds, then a
+   world of one rank; its first validation within DP_RTOL), printed in the
+   line as `multi_gpu`; with one, `multi_gpu` says it was not run.
 
 Phases 5-8 run the host loop (`HYBRIDODE_FUSED=0`), so that their numbers
 stay comparable with the runs before the fused loop.
@@ -145,6 +164,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -197,6 +217,12 @@ HORIZON_STEPS = 10
 DRAWN = ("output_coef", "ml_coef", "dose_time", "dose_amount", "actions", "masks")
 LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ = 2, 2
 LOCKSTEP_RTOL = 1e-3
+# The lockstep restarts batched (`--restart_mode vmap`) against `seq` on the same card, held within LOCKSTEP_VMAP_RTOL
+# (tests/test_torch_cuda_multigpu.py's tolerance for the same pair; LOCKSTEP_RTOL is for the GPU against the CPU); the
+# native generator's latents against the GPU generator's (tests/test_torch_native.py's tolerance).
+LOCKSTEP_RESTARTS, LOCKSTEP_VMAP_ITERS, LOCKSTEP_VMAP_TEST_FREQ = 2, 2, 2
+LOCKSTEP_VMAP_RTOL = 1e-5
+NATIVE_RTOL, NATIVE_ATOL = 1e-6, 1e-6
 ADJOINT_RTOL, ADJOINT_ATOL = 2e-3, 1e-5
 # Phase 9: the fused loop, GPU captured / CPU / GPU host loop (FUSED_ITERS iterations, validation every
 # FUSED_TEST_FREQ), the first FUSED_HELD_ROWS validations held within TRAIN_RTOL; `--restart_mode vmap` with
@@ -211,6 +237,7 @@ FUSED_RESTARTS, VMAP_ITERS, VMAP_TEST_FREQ = 2, 4, 2
 # 1 x 1 (data, mc) mesh against `evaluate` (the four point metrics equal at the CSV's 4 decimals, the kernel
 # launched EVAL_LAUNCHES times); the CPU dryrun of DRYRUN_RANKS gloo ranks and its OK lines.
 DP_RTOL = 1e-6
+MULTI_GPU_TIMEOUT = 300.0  # seconds a world of the two-world check may take
 DRYRUN_RANKS = 4
 DRYRUN_LINES = ("dryrun 2D mesh (2x2 data x mc) eval parity OK", "dryrun real-track DP step: loss=",
                 "dryrun flow DP step: loss=", "dryrun 2D mesh flow eval parity OK",
@@ -542,6 +569,54 @@ def _profile_probe(params, model, batch, seed):
     return trace
 
 
+def _checkpoint_probe(model, seed):
+    """The first training batch's per-patient decode with its gradient (the main path's solve), without and with
+    `checkpoint_steps`, in turns (off, on, on, off); -> the peak device memory each run allocated beyond what was
+    allocated before it, its seconds (the medians), the gradients' largest difference and the RK4 launches."""
+    import torch
+
+    from hybridode_torch.fields import doses_from_actions, roche_field
+    from hybridode_torch.inference import elbo
+    from hybridode_torch.models import nn, priors
+    from hybridode_torch.ops import roche_rk4
+    from hybridode_torch.solvers import odeint_dopri5
+
+    params, eps, _, batch = _first_batch(model, seed)
+    spec = model.decoder_spec
+    leaves = [p for p in params.parameters() if p.requires_grad]
+    ctx = doses_from_actions(batch["actions"], spec.step_size)
+    ts = torch.as_tensor(spec.ts, dtype=torch.float32, device="cuda")
+
+    def run(checkpoint_steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        mu, log_var = elbo.encode(params, model, batch["measurements"], batch["actions"], batch["masks"])
+        z = priors.gaussian_reparameterize(mu, log_var, eps)
+        h, st = odeint_dopri5(roche_field, z, ts, (params["decoder"]["ode"], ctx), rtol=spec.rtol, atol=spec.atol,
+                              max_steps=spec.max_steps, per_row=True, checkpoint_steps=checkpoint_steps)
+        x_hat = nn.linear(params["decoder"]["output"], h)
+        loss = torch.sum((x_hat - batch["measurements"]) ** 2 * batch["masks"]) / x_hat.shape[1]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, (torch.cuda.max_memory_allocated() - base) / 2**20, grads, int(st.n_steps.max())
+
+    roche_rk4.roche_rk4_trajectory.launches = 0
+    runs = {False: [], True: []}
+    for flag in (False, True, True, False):
+        runs[flag].append(run(flag))
+    launches = roche_rk4.roche_rk4_trajectory.launches
+    diff = max(((a - b).abs().max().item() for a, b in zip(runs[False][0][2], runs[True][0][2])
+                if a is not None), default=0.0)
+    line = {("on" if flag else "off"): dict(step_s=statistics.median(r[0] for r in rs), peak_mb=max(r[1] for r in rs))
+            for flag, rs in runs.items()}
+    line.update(trial_max=runs[False][0][3], peak_ratio=line["on"]["peak_mb"] / line["off"]["peak_mb"],
+                step_s_ratio=line["on"]["step_s"] / line["off"]["step_s"], grads_max_abs_diff=diff,
+                roche_rk4_launches=launches)
+    return line
+
+
 def phase_train(args, probes):
     import torch
 
@@ -557,13 +632,17 @@ def phase_train(args, probes):
         runs["cpu"], _, _, cpu_scores = _train_run("cpu", args.seed, os.path.join(tmp, "cpu"))
     steps, batch = _first_batch_steps(model, args.seed)
     probes["train"] = _profile_probe(params, model, batch, args.seed)
+    checkpoint = _checkpoint_probe(model, args.seed)
 
     line = dict(seconds=time.perf_counter() - t0, **_held_pair(runs, gpu_scores, cpu_scores),
-                first_batch_steps=steps, roche_rk4_launches=rk4_launches)
+                first_batch_steps=steps, roche_rk4_launches=rk4_launches, checkpoint_steps=checkpoint)
     print("train " + json.dumps(line), flush=True)
     _check_pair(line, TRAIN_ITERS, TRAIN_TEST_FREQ, TRAIN_RTOL)
-    if rk4_launches:
-        raise SystemExit(f"the RK4 kernel was launched {rk4_launches} times on the DOPRI5 training path")
+    if rk4_launches or checkpoint["roche_rk4_launches"]:
+        raise SystemExit(f"the RK4 kernel was launched {rk4_launches} times on the DOPRI5 training path and "
+                         f"{checkpoint['roche_rk4_launches']} in the checkpoint_steps probe")
+    if checkpoint["grads_max_abs_diff"] != 0:
+        raise SystemExit(f"checkpoint_steps moved the gradients: {checkpoint}")
     return line
 
 
@@ -895,7 +974,8 @@ def cohort_faults(got: dict, want: dict) -> list:
 
 
 def _generate(device, out):
-    """`create_data --which train --seed 123` on `device`, its file held against data_s123's."""
+    """`create_data --which train --seed 123` on `device`, its file held against data_s123's; -> (its line, the
+    file's state)."""
     from hybridode_torch.cli import create_data
     from hybridode_torch.utils.pickling import load_pickle
 
@@ -903,9 +983,65 @@ def _generate(device, out):
     ((path, cohort),) = create_data.main(["--which", "train", "--seed", "123", "--out", out]
                                          + (["--device", "c"] if device == "cpu" else [])).items()
     seconds = time.perf_counter() - t  # the latents were read back to the host before the file was written
-    st = cohort.solve_stats
+    st, state = cohort.solve_stats, load_pickle(path)["state"]
     return dict(seconds=seconds, trial_steps=int(st.n_steps), accepted_steps=int(st.n_accepted),
-                success=bool(st.success), faults=cohort_faults(load_pickle(path)["state"], load_pickle(COHORT)["state"]))
+                success=bool(st.success), faults=cohort_faults(state, load_pickle(COHORT)["state"])), state
+
+
+def _generate_native(gpu_state):
+    """The seed-123 training cohort with the native C++ solve on the host, held against data_s123's file and, its
+    latents, against the GPU generator's within NATIVE_RTOL / NATIVE_ATOL."""
+    import numpy as np
+
+    from hybridode_torch import native
+    from hybridode_torch.data import SyntheticCohort
+    from hybridode_torch.data.synthetic import TRAIN_COHORT
+    from hybridode_torch.utils.pickling import load_pickle
+
+    t = time.perf_counter()
+    native.available()  # the library's build, timed apart
+    build_s = time.perf_counter() - t
+    cohort = SyntheticCohort(rng=np.random.RandomState(123), device="cpu", **TRAIN_COHORT)
+    t = time.perf_counter()
+    cohort.generate_data(backend="native")
+    cohort.split_sample()
+    seconds = time.perf_counter() - t
+    state = {k: getattr(cohort, k) for k in DRAWN + ("latents", "measurements")}
+    diff = np.abs(cohort.latents.astype(np.float64) - gpu_state["latents"].astype(np.float64))
+    bad = ~(diff <= NATIVE_ATOL + NATIVE_RTOL * np.abs(gpu_state["latents"].astype(np.float64)))
+    committed = load_pickle(COHORT)["state"]
+    return dict(seconds=seconds, build_s=build_s, faults=cohort_faults(state, {k: committed[k] for k in state}),
+                latents_max_abs_diff_vs_gpu=float(diff.max()), latents_beyond_tol_vs_gpu=int(bad.sum()))
+
+
+def _lockstep_restarts(seed, tmp):
+    """The lockstep hybrid's restarts batched (`--restart_mode vmap`) and in turn (`seq`) on the card, the fused
+    loop (uncaptured on the adjoint solver); -> their seconds, validations, checkpoints and RK4 launches."""
+    from hybridode_torch.cli import run_simulation
+    from hybridode_torch.inference import load_checkpoint
+
+    out = {}
+    for mode in ("vmap", "seq"):
+        optim = dataclasses.replace(_optim(LOCKSTEP_VMAP_ITERS, LOCKSTEP_VMAP_TEST_FREQ), n_restart=LOCKSTEP_RESTARTS)
+        path = os.path.join(tmp, f"lockstep_{mode}")
+        with _fused_loop(True):
+            (run, _, model, scores), _, launches = _counted(lambda: _logged_run(
+                run_simulation, "cuda", path, seed=seed, elbo=True, eval_only=False, init_path=None,
+                model_method="hybrid", optim_config=optim, lockstep=True, restart_mode=mode))
+        _, best_itr, best = load_checkpoint(path + "/", model.model_name, device="cpu")
+        with open(os.path.join(path, "events.jsonl")) as f:
+            vals = [json.loads(ln) for ln in f]
+        vals = [(v.get("restart"), v["itr"], v["val_loss"]) for v in vals if v["event"] == "val"]
+        train_s = sum(d["wall"] for d in run["done"])
+        out[mode] = dict(train_s=train_s, iter_s=train_s / (LOCKSTEP_RESTARTS * LOCKSTEP_VMAP_ITERS),
+                         evaluate_s=run["evaluate"]["seconds"], run_s=run["seconds"], val=vals, best_loss=best,
+                         best_itr=best_itr, metrics=_scores(scores), roche_rk4_launches=launches)
+    seq_first = [v for _, _, v in out["seq"]["val"]][::LOCKSTEP_VMAP_ITERS // LOCKSTEP_VMAP_TEST_FREQ]
+    vmap_first = [next(v for r, _, v in out["vmap"]["val"] if r == lane) for lane in range(LOCKSTEP_RESTARTS)]
+    out["first_val_max_rel_diff"] = max(map(_rel_diff, vmap_first, seq_first))
+    out["best_rel_diff"] = _rel_diff(out["vmap"]["best_loss"], out["seq"]["best_loss"])
+    out["train_s_ratio"] = out["vmap"]["train_s"] / out["seq"]["train_s"]
+    return out
 
 
 def _first_batch_lockstep_steps(model, params, eps, batch):
@@ -967,11 +1103,14 @@ def phase_lockstep(args, probes):
     line = {}
     with tempfile.TemporaryDirectory() as tmp:
         roche_rk4.roche_rk4_trajectory.launches = 0
-        gpu = _generate("cuda", os.path.join(tmp, "gen_gpu"))
+        gpu, gpu_state = _generate("cuda", os.path.join(tmp, "gen_gpu"))
         torch.cuda.synchronize()
         launches = roche_rk4.roche_rk4_trajectory.launches
-        line["create_data"] = dict(gpu=gpu, cpu=_generate("cpu", os.path.join(tmp, "gen_cpu")),
+        line["create_data"] = dict(gpu=gpu, cpu=_generate("cpu", os.path.join(tmp, "gen_cpu"))[0],
                                    roche_rk4_launches=launches)
+        roche_rk4.roche_rk4_trajectory.launches = 0
+        line["create_data"]["native"] = _generate_native(gpu_state)
+        line["create_data"]["native"]["roche_rk4_launches"] = roche_rk4.roche_rk4_trajectory.launches
 
         runs, kw = {}, dict(seed=args.seed, elbo=True, eval_only=False, init_path=None, model_method="hybrid",
                             optim_config=_optim(LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ), lockstep=True)
@@ -980,6 +1119,7 @@ def phase_lockstep(args, probes):
         torch.cuda.synchronize()
         launches = roche_rk4.roche_rk4_trajectory.launches
         runs["cpu"], _, _, cpu_scores = _logged_run(run_simulation, "cpu", os.path.join(tmp, "cpu"), **kw)
+        line["restarts"] = _lockstep_restarts(args.seed, tmp)
     first = _first_batch(model, args.seed)
     steps = _first_batch_lockstep_steps(model, first[0], first[1], first[3])
     line["adjoint_vs_backprop"] = _adjoint_vs_backprop(model, *first)
@@ -995,14 +1135,28 @@ def phase_lockstep(args, probes):
         faults += [f"create_data on the {device}: {f}" for f in gen["faults"]]
         if not gen["success"]:
             faults.append(f"create_data on the {device}: the ground-truth solve did not finish")
+    gen = line["create_data"]["native"]
+    faults += [f"native generation: {f}" for f in gen["faults"]]
+    if gen["latents_beyond_tol_vs_gpu"]:
+        faults.append(f"native generation: {gen['latents_beyond_tol_vs_gpu']} latents beyond rtol={NATIVE_RTOL} "
+                      f"atol={NATIVE_ATOL} of the GPU generator's")
+    restarts = line["restarts"]
+    if restarts["first_val_max_rel_diff"] > LOCKSTEP_VMAP_RTOL or restarts["best_rel_diff"] > LOCKSTEP_VMAP_RTOL or \
+            restarts["vmap"]["best_itr"] != restarts["seq"]["best_itr"] or \
+            len(restarts["vmap"]["val"]) != len(restarts["seq"]["val"]):
+        faults.append(f"lockstep vmap against seq beyond rtol={LOCKSTEP_VMAP_RTOL}: {restarts}")
     if not (steps["success"] and steps["recorded_all"] and steps["z_requires_grad"]):
         faults.append(f"the first batch's lockstep decode: {steps}")
     if not line["adjoint_vs_backprop"]["ok"]:
         faults.append(f"adjoint against backprop beyond rtol={ADJOINT_RTOL} atol={ADJOINT_ATOL}: "
                       f"{line['adjoint_vs_backprop']['leaves']}")
-    for name in ("create_data", "train"):
-        if line[name]["roche_rk4_launches"]:
-            faults.append(f"{name}: the RK4 kernel was launched {line[name]['roche_rk4_launches']} times")
+    for name, launched in (("create_data", line["create_data"]["roche_rk4_launches"]),
+                           ("native generation", gen["roche_rk4_launches"]),
+                           ("train", line["train"]["roche_rk4_launches"]),
+                           ("lockstep vmap", restarts["vmap"]["roche_rk4_launches"]),
+                           ("lockstep seq", restarts["seq"]["roche_rk4_launches"])):
+        if launched:
+            faults.append(f"{name}: the RK4 kernel was launched {launched} times")
     if faults:
         raise SystemExit("; ".join(faults))
     _check_pair(line["train"], LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ, LOCKSTEP_RTOL)
@@ -1204,7 +1358,8 @@ def _dryrun_wait(proc, t_start):
 def phase_parallel(args, fused_line):
     """Phase 10: the DP fused restart on a world of one NCCL rank, captured (its all-reduces in the step's and the
     validation's graphs), against phase 9's captured run from the same seed; `evaluate_sharded` on a 1 x 1 (data,
-    mc) mesh at RK4 against `evaluate`; `--dp 2` refused on the one-GPU machine; the 4-rank CPU dryrun."""
+    mc) mesh at RK4 against `evaluate`; `--dp 2` refused on a one-GPU machine, the two-world check on a machine of
+    several; the 4-rank CPU dryrun."""
     import torch
 
     from hybridode_torch.cli import common, run_simulation
@@ -1269,14 +1424,23 @@ def phase_parallel(args, fused_line):
                 equal_at_4_decimals=all(f"{sharded[i]:.4f}" == f"{plain[i]:.4f}" for i in (0, 2, 3, 5)))
 
             # `--dp 2` on a machine of one GPU: the mesh error before any rank starts.
-            try:
-                run_simulation.main(["--dp", "2", "--data_path", COHORT, "--path", os.path.join(tmp, "refused_")])
-                refusal = "no error"
-            except ValueError as e:
-                refusal = str(e)
+            gpus = torch.cuda.device_count()
+            refusal = f"not run: {gpus} GPUs visible"
+            if gpus == 1:
+                try:
+                    run_simulation.main(["--dp", "2", "--data_path", COHORT, "--path", os.path.join(tmp, "refused_")])
+                    refusal = "no error"
+                except ValueError as e:
+                    refusal = str(e)
             line["refusal"] = refusal
         finally:
             close_world()
+        if gpus > 1:  # worlds of 2 GPUs, once this process has left its world
+            import multigpu_study
+
+            line["multi_gpu"] = multigpu_study.two_worlds(tmp, "cuda", MULTI_GPU_TIMEOUT)
+        else:
+            line["multi_gpu"] = f"not run: {gpus} GPU visible"
     line["dryrun"] = _dryrun_wait(dryrun, t0)
     line["seconds"] = time.perf_counter() - t0
     print("parallel " + json.dumps(line), flush=True)
@@ -1294,8 +1458,10 @@ def phase_parallel(args, fused_line):
     ev = line["evaluate_sharded"]
     if ev["roche_rk4_launches"] != EVAL_LAUNCHES or not ev["equal_at_4_decimals"]:
         faults.append(f"evaluate_sharded: {ev}")
-    if not refusal.startswith("requested a 2-device 'data' mesh but only 1 devices are available"):
+    if gpus == 1 and not refusal.startswith("requested a 2-device 'data' mesh but only 1 devices are available"):
         faults.append(f"--dp 2 on one GPU: {refusal}")
+    if gpus > 1 and not line["multi_gpu"]["ok"]:
+        faults.append(f"the two-world check: {line['multi_gpu']}")
     if line["dryrun"]["rc"] or line["dryrun"]["missing"]:
         faults.append(f"dryrun: {line['dryrun']}")
     if dp["roche_rk4_launches"]:
@@ -1343,6 +1509,10 @@ def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parall
             run_eval=more["run_eval"]["roche_rk4_launches"],
             run_simulation_lockstep=lockstep["train"]["roche_rk4_launches"],
             create_data=lockstep["create_data"]["roche_rk4_launches"],
+            create_data_native=lockstep["create_data"]["native"]["roche_rk4_launches"],
+            lockstep_vmap=lockstep["restarts"]["vmap"]["roche_rk4_launches"],
+            lockstep_seq=lockstep["restarts"]["seq"]["roche_rk4_launches"],
+            checkpoint_steps_probe=train["checkpoint_steps"]["roche_rk4_launches"],
             **{f"fused_{k}": v for k, v in fused_line["roche_rk4_launches"].items()},
             evaluate_sharded=parallel_line["evaluate_sharded"]["roche_rk4_launches"],
             fused_dp=parallel_line["dp_fused"]["roche_rk4_launches"]),

@@ -155,11 +155,9 @@ def check_parallel_flags(*, restart_mode, n_restart, dp_devices, restart_devices
     package's messages; -> the ranks the run needs: the larger of its training mesh and its evaluation mesh.
 
     On CUDA every rank takes a GPU of its own, so a mesh larger than the
-    visible GPUs raises JAX's mesh error, and a world of more than one GPU is
-    refused (ROADMAP.md, queue 3); on the CPU ranks are gloo processes.
+    visible GPUs raises JAX's mesh error; on the CPU ranks are gloo processes.
     """
     from ..parallel.eval import check_sharded_eval
-    from ..parallel.launch import refuse_gpu_world
     from ..parallel.mesh import require_devices
 
     if restart_mode != "seq":
@@ -188,7 +186,6 @@ def check_parallel_flags(*, restart_mode, n_restart, dp_devices, restart_devices
         require_devices(train, what, gpus)
         if eval_mesh is not None:
             require_devices(evaluation, f"{eval_mesh[0]}x{eval_mesh[1]} ('data', 'mc')", gpus)
-    refuse_gpu_world(max(train, evaluation), device)
     return max(train, evaluation)
 
 
@@ -196,8 +193,9 @@ def _call(fn, kwargs):
     return fn(**kwargs)
 
 
-def launch_run(run, kwargs: dict, world: int, device):
-    """`run(**kwargs)` on every rank of a new world of `world` ranks (`parallel.launch`); -> rank 0's result."""
+def launch_run(run, kwargs: dict, world: int, device, timeout: float | None = None):
+    """`run(**kwargs)` on every rank of a new world of `world` ranks (`parallel.launch`, which raises
+    `TimeoutError` after `timeout` seconds); -> rank 0's result."""
     from ..parallel.launch import launch
 
-    return launch(_call, world, run, dict(kwargs, device=str(device)), device=device)
+    return launch(_call, world, run, dict(kwargs, device=str(device)), device=device, timeout=timeout)

@@ -32,10 +32,9 @@ data-parallel over `--dp`; `--eval_mesh DPxMC` evaluates on a (patients x
 MC samples) mesh. The run starts the larger of its training and evaluation
 meshes; a mesh takes the first ranks and the others wait; rank 0 prints and
 writes. A mesh larger than the visible GPUs raises; nothing runs two ranks on
-one GPU or moves to the CPU. A world of more than one GPU is refused until
-the hang of such runs is fixed (ROADMAP.md, queue 3): on CUDA these flags
-run a world of one rank. Not ported: `--restart_mode vmap` with
-`--step_control lockstep` (ROADMAP.md, queue 1, item 6).
+one GPU or moves to the CPU. `--restart_mode vmap` and `shard` compose with
+`--step_control lockstep`: each lane keeps its own controller
+(`solvers/adjoint.py`).
 """
 
 from __future__ import annotations
@@ -57,12 +56,6 @@ from ..utils.logging import JSONLLogger
 from . import common
 
 SCORE_NAMES = ("rmse_z0", "rmse_z0_sd", "cprs_z0", "rmse_x", "rmse_x_sd", "cprs_x")
-
-
-def _refuse_unported(restart_mode, lockstep=False):
-    if restart_mode in ("vmap", "shard") and lockstep:
-        raise NotImplementedError(f"--restart_mode={restart_mode} with --step_control lockstep is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 6)")
 
 
 def run(
@@ -99,7 +92,6 @@ def run(
     """
     kwargs = dict(locals())
     device = resolve_device(device)
-    _refuse_unported(restart_mode, lockstep)
     world = common.check_parallel_flags(restart_mode=restart_mode, n_restart=optim_config.n_restart,
                                         dp_devices=dp_devices, restart_devices=restart_devices, eval_mesh=eval_mesh,
                                         batch_size=optim_config.batch_size, init_path=init_path, eval_only=eval_only,

@@ -13,8 +13,10 @@ the ml coefficients as the `ml_net` weights, on the cohort's device: the GPU
 unless the caller asks for the CPU. They agree with JAX's to ~1 float32 ulp
 (on the GPU the lockstep controller takes another step sequence: its error
 norm sums in another order, and the dose jumps make the steps sensitive to
-that; the latents stay within the same tolerance).
-JAX's `backend="native"` (a C++ integrator) is not ported.
+that; the latents stay within the same tolerance). `backend="native"` solves
+them instead with the port's copy of the JAX package's C++ integrator
+(`hybridode_torch/native`, one float64 DOPRI5 a patient on the host), as
+JAX's `backend="native"` does; a failed build raises with g++'s output.
 
 `save` writes the JAX package's payload, `{"class": "SyntheticCohort",
 "state": ...}`, naming JAX's classes (`utils/pickling.py`), so that either
@@ -125,8 +127,16 @@ class SyntheticCohort:
         dose_amount = self.rng.rand(self.n_sample) * self.dose_max
         return dose_time, dose_amount
 
-    def generate_data(self, rtol: float = 1e-8, atol: float = 1e-10, max_steps: int = 4096):
-        """Draw the cohort and solve its ground truth; the solve's `Dopri5Stats` stay in `solve_stats`."""
+    def generate_data(self, rtol: float = 1e-8, atol: float = 1e-10, max_steps: int = 4096,
+                      backend: str = "torch"):
+        """Draw the cohort and solve its ground truth; the solve's `Dopri5Stats` stay in `solve_stats`.
+
+        `backend`: "torch", the lockstep DOPRI5 on the cohort's device; or
+        "native", the C++ integrator on the host (`solve_stats` None), with
+        JAX's budget of 100,000 steps a patient.
+        """
+        if backend not in ("torch", "native"):
+            raise ValueError(f"backend must be 'torch' or 'native', not {backend!r}")
         init = self.get_initial_conditions()
         dose_time, dose_amount = self.get_action()
         self.dose_time = dose_time
@@ -134,15 +144,24 @@ class SyntheticCohort:
 
         ts = np.arange(0.0, self.t_max + self.step_size, self.step_size, dtype=np.float64)
 
-        # One float64 lockstep solve of the whole cohort, the numerical regime
-        # of the reference's float64 LSODA; rtol 1e-8 is out of float32's reach.
-        f64 = dict(dtype=torch.float64, device=self.device)
-        ctx = DoseContext(times=torch.as_tensor(dose_time, **f64), amounts=torch.as_tensor(dose_amount, **f64))
-        with torch.no_grad():
-            latents, stats = odeint_dopri5(roche_field, torch.as_tensor(init, **f64), torch.as_tensor(ts, **f64),
-                                           (self._ground_truth_params(), ctx), rtol=rtol, atol=atol,
-                                           max_steps=max_steps)
-        latents = latents.cpu().numpy()  # (T, B, D)
+        # Float64, the numerical regime of the reference's float64 LSODA; rtol 1e-8 is out of float32's reach.
+        if backend == "native":
+            from .. import native
+            from ..config import ROCHE_PARAM_NAMES
+
+            params13 = np.array([getattr(self.roche_config, n) for n in ROCHE_PARAM_NAMES], np.float64)
+            latents = native.roche_dopri5_batch(init, dose_time.astype(np.float64), dose_amount, params13,
+                                                self.ml_coef if self.ml_dim > 0 else None, ts, rtol=rtol, atol=atol,
+                                                max_steps=100000)
+            stats = None
+        else:  # one lockstep solve of the whole cohort
+            f64 = dict(dtype=torch.float64, device=self.device)
+            ctx = DoseContext(times=torch.as_tensor(dose_time, **f64), amounts=torch.as_tensor(dose_amount, **f64))
+            with torch.no_grad():
+                latents, stats = odeint_dopri5(roche_field, torch.as_tensor(init, **f64),
+                                               torch.as_tensor(ts, **f64), (self._ground_truth_params(), ctx),
+                                               rtol=rtol, atol=atol, max_steps=max_steps)
+            latents = latents.cpu().numpy()  # (T, B, D)
         assert np.all(np.isfinite(latents)), "ground-truth solve failed"
 
         # Linear observation head + Gaussian noise. The trailing output_coef
@@ -233,24 +252,15 @@ class SyntheticCohort:
         return {k: v[:, lo:hi] for k, v in data.items()}
 
 
+# The training cohort's settings (`make_train_cohort`), for a caller that builds it another way.
+TRAIN_COHORT = dict(n_sample=1300, obs_dim=20, t_max=14, step_size=1, roche_config=RocheConfig(kel=1), output_sigma=0.2,
+                    dose_max=10, latent_dim=6, sparsity=0.5, output_sparsity=0.5, p_remove=0.5, val_size=100,
+                    test_size=200)
+
+
 def make_train_cohort(seed: int = 666, n_sample: int = 1300, device=None, **overrides) -> SyntheticCohort:
     """The seed-666 training cohort (n=1300: 1000 train, 100 val, 200 test)."""
-    kwargs = dict(
-        n_sample=n_sample,
-        obs_dim=20,
-        t_max=14,
-        step_size=1,
-        roche_config=RocheConfig(kel=1),
-        output_sigma=0.2,
-        dose_max=10,
-        latent_dim=6,
-        sparsity=0.5,
-        output_sparsity=0.5,
-        p_remove=0.5,
-        val_size=100,
-        test_size=200,
-    )
-    kwargs.update(overrides)
+    kwargs = dict(TRAIN_COHORT, n_sample=n_sample, **overrides)
     dg = SyntheticCohort(rng=np.random.RandomState(seed), device=device, **kwargs)
     dg.generate_data()
     dg.split_sample()

@@ -49,7 +49,12 @@ vmap`): their parameters stacked along a leading lane axis
 `torch.func.vmap(torch.func.grad_and_value(...))` over `functional_call` of
 the loss, and one Adam over the stacked leaves, which is R independent Adams
 since Adam is elementwise. Adam's step count is shared; a lane that stopped
-never steps again, so its own count is never read.
+never steps again, so its own count is never read. On the lockstep adjoint
+solver (`--step_control lockstep`) the lanes' losses come out of the vmap and
+the gradient of their sum is taken outside it, each lane's own since the
+lanes are independent: the solver's `vmap` rule solves the lanes one after
+the other, each as its own plain solve outside the vmap, where it may read
+the host (`solvers/adjoint.py`).
 
 `_Run` is the counterpart of JAX's windowed runner `_make_run`, shared by
 both loops as JAX shares it between jit and vmap.
@@ -57,10 +62,12 @@ both loops as JAX shares it between jit and vmap.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -73,6 +80,22 @@ from .train import check_dp_divisibility, reload_best, unfreeze_expert
 
 _LAST_FLUSH_SINK = None  # the last restart's sink, kept for tests and observability
 _LAST_RUN = None  # the last `_Run`, kept for measurement: its graphs can be replayed and traced
+_GRAPHED = weakref.WeakSet()  # every `_Graphed` alive in the process, for `release_graphs`
+
+
+def release_graphs() -> None:
+    """Reset every CUDA graph the fused loops captured in this process, whoever still holds it.
+
+    A graph that captured an NCCL collective keeps its communicator from
+    being destroyed, so a world frees them all before it ends
+    (`parallel.launch.close_world`). A `_Graphed` whose graph was reset
+    captures anew at its next call.
+    """
+    global _LAST_RUN
+    _LAST_RUN = None
+    for g in list(_GRAPHED):
+        g.release()
+    gc.collect()
 
 
 class _FlushSink:
@@ -178,6 +201,12 @@ class _Graphed:
         self.fn, self.name, self.events = fn, name, events
         self.stream = torch.cuda.Stream()  # the warm-up's and the capture's
         self.graph = None
+        _GRAPHED.add(self)
+
+    def release(self):
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
 
     def __call__(self):
         if self.graph is not None:
@@ -622,9 +651,6 @@ def _experiment_loop(niters, data_generator, model, restart_generators, batch_si
     """`fused_experiment_loop`; `init_params`, one parameter tree per restart, replaces the lanes' random
     initialisation (the dryrun's pinned parameters)."""
     global _LAST_RUN
-    if getattr(model.decoder_spec, "use_adjoint", False):
-        raise NotImplementedError("--restart_mode vmap over the lockstep adjoint solver is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 6)")
     from .. import resolve_device
     from ..parallel.launch import is_writer, wait_idle
     from ..parallel.mesh import all_gather_rows, axis, barrier, forecast_terms, make_mesh_2d, member, replicate
@@ -676,8 +702,13 @@ def _experiment_loop(niters, data_generator, model, restart_generators, batch_si
 
         return lane
 
-    lane_grad = torch.func.grad_and_value(
-        call(lambda tree, batch, eps, eps_kl: loss_fn(tree, model, batch, eps=eps, eps_kl=eps_kl)))
+    lane_loss = call(lambda tree, batch, eps, eps_kl: loss_fn(tree, model, batch, eps=eps, eps_kl=eps_kl))
+    lane_grad = torch.func.grad_and_value(lane_loss)
+    # The adjoint solver reads the host inside a solve (its lanes run outside the vmap, `solvers/adjoint.py`), so
+    # its lanes run no whole budget, and their gradient is taken outside the vmap: the lanes are independent, so
+    # the gradient of their summed losses is each lane's own.
+    adjoint = getattr(model.decoder_spec, "use_adjoint", False)
+    budget = contextlib.nullcontext if adjoint else dopri5.full_budget
     data_mesh = mesh if dp > 1 else None
     if val_criterion == "forecast":
         lane_eval = call(lambda tree, vbatch, eps, eps_kl: forecast_terms(tree, model, vbatch, val_t0, data_mesh))
@@ -692,14 +723,18 @@ def _experiment_loop(niters, data_generator, model, restart_generators, batch_si
     mean = _DataMean(mesh) if dp > 1 else None
 
     def grad_fn(batch, eps, eps_kl):
-        with dopri5.full_budget():  # a vmapped solve cannot read `finished` on the host
-            grads, loss = torch.func.vmap(lane_grad, in_dims=(0, 0, 0) + noise_dims(eps, eps_kl))(
-                train, frozen, batch, eps, eps_kl)
-        out = loss.detach(), [grads[n] for n in train]
+        in_dims = (0, 0, 0) + noise_dims(eps, eps_kl)
+        if adjoint:
+            loss = torch.func.vmap(lane_loss, in_dims=in_dims)(train, frozen, batch, eps, eps_kl)
+            out = loss.detach(), list(torch.autograd.grad(loss.sum(), leaves, allow_unused=True))
+        else:
+            with dopri5.full_budget():  # a vmapped solve cannot read `finished` on the host
+                grads, loss = torch.func.vmap(lane_grad, in_dims=in_dims)(train, frozen, batch, eps, eps_kl)
+            out = loss.detach(), [grads[n] for n in train]
         return out if mean is None else mean.step(*out)
 
     def eval_fn(vbatch, eps, eps_kl):
-        with dopri5.full_budget():
+        with budget():
             return torch.func.vmap(lane_eval, in_dims=(0, 0, None) + noise_dims(eps, eps_kl))(
                 train, frozen, vbatch, eps, eps_kl)
 

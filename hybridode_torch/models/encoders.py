@@ -1,9 +1,11 @@
-"""Variational posterior encoders (counterpart of hybridode/models/encoders.py:26-173).
+"""Variational posterior encoders and the LSTM baseline (counterpart of hybridode/models/encoders.py:26-205).
 
 `encoder_lstm_*`: the simulation track's reversed LSTM. `encoder_planar_lstm_*`:
 the same LSTM with amortised planar-flow heads, and `planar_reparameterize` /
 `planar_log_density`, the flow posterior (LHM-NF). `encoder_lstm_real_*`: the
 real track's LSTM over [x, a, time], with 2-layer tanh MLP heads.
+`lstm_baseline_*`: the discrete supervised baseline (LSTMBaseline), an LSTM
+forward in time with an ELU MLP head and a masked next-step MSE.
 """
 
 from __future__ import annotations
@@ -157,3 +159,35 @@ def encoder_lstm_real_apply(params, spec: EncoderLSTMRealSpec, x, a, m):
     if spec.output_all:
         return mu, log_var
     return mu[-1], log_var[-1]
+
+
+# --- LSTMBaseline (the discrete supervised baseline, hybridode/models/encoders.py:176-205) ----------------------
+
+
+class LSTMBaselineSpec(NamedTuple):
+    input_dim: int
+    hidden_dim: int
+    output_dim: int
+    model_name: str = "LSTMBaseline"
+
+
+def init_lstm_baseline(generator, spec: LSTMBaselineSpec, dtype=DTYPE, device=None) -> nn.ParamTree:
+    tree = {
+        "lstm": nn.lstm_init(generator, spec.input_dim, spec.hidden_dim, dtype),
+        "out": nn.mlp_init(generator, [spec.hidden_dim, spec.hidden_dim + 1, spec.output_dim], dtype=dtype),
+    }
+    return nn.ParamTree(tree).to(resolve_device(device))
+
+
+def lstm_baseline_apply(params, spec: LSTMBaselineSpec, x, a, mask):
+    """(T,B,obs) observations + (T,B,A) inputs -> (T,B,output_dim): an LSTM forward in time, then Linear, ELU,
+    Linear at every step. `mask` is unused, as in JAX."""
+    hs = nn.lstm_scan(params["lstm"], torch.cat([x, a], dim=-1), spec.hidden_dim, return_all=True)
+    return nn.mlp(params["out"], hs, activation=nn.elu)
+
+
+def lstm_baseline_loss(params, spec: LSTMBaselineSpec, batch):
+    """Masked next-step MSE over the batch: actions and statics are the inputs beside the observations."""
+    x, a, mask, s = batch["measurements"], batch["actions"], batch["masks"], batch["statics"]
+    x_hat = lstm_baseline_apply(params, spec, x, torch.cat([a, s], dim=-1), mask)[:-1]
+    return torch.sum((x[1:] - x_hat) ** 2 * mask[1:]) / x.shape[1]

@@ -3,8 +3,8 @@
 One process per rank (`launch`), gloo on the CPU and NCCL on CUDA; 1-D batch
 data parallelism (`make_mesh`, `make_dp_train_step`), the 2-D (patients x MC)
 evaluation (`make_mesh_2d`, `evaluate_sharded`), and the dryrun of N ranks
-(`python -m hybridode_torch.parallel.dryrun N --device c` on gloo CPU ranks).
-A world of more than one GPU is refused (ROADMAP.md, queue 3).
+(`python -m hybridode_torch.parallel.dryrun N --device c` on gloo CPU ranks,
+without `--device c` on N GPUs).
 """
 
 from .eval import evaluate_sharded, make_sharded_eval_chunk

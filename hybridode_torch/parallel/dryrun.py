@@ -3,8 +3,7 @@
     python -m hybridode_torch.parallel.dryrun N --device c
 
 starts N gloo ranks on the CPU (`launch`; without `--device c`, N NCCL ranks,
-one a GPU: N above the visible GPUs raises the mesh error, and above 1 is
-refused, ROADMAP.md queue 3) and runs, at dryrun shapes, the sections of the
+one a GPU: N above the visible GPUs raises the mesh error) and runs, at dryrun shapes, the sections of the
 JAX package's 8-device dryrun, each printing its OK line:
 the DP step of the pinned flagship (the dim-8 hybrid, JAX's `flagship`), the
 2-D (data x mc) evaluation against the single-process `_eval_chunk`, the

@@ -10,11 +10,20 @@ OpenMP), waits for them, and returns rank 0's result:
 * CUDA ranks take NCCL, one rank a GPU (`cuda:rank`); CPU ranks take gloo
   and one thread each. The backend follows the device and is never swapped
   for the other when one fails;
-* a world of more than one GPU is refused (`refuse_gpu_world`): such runs
-  hung after their first world (ROADMAP.md, queue 3); a world of one NCCL
-  rank and gloo worlds of any size run;
-* only rank 0 prints: the other ranks' standard output goes to `os.devnull`;
-  the code a rank runs writes files on rank 0 only (`is_writer`);
+* a world of N GPUs needs N visible GPUs (the callers raise JAX's mesh
+  error first, `mesh.require_devices`);
+* only rank 0 prints: the other ranks' standard output goes to `os.devnull`,
+  their standard error to their log; the code a rank runs writes files on
+  rank 0 only (`is_writer`);
+* every rank keeps a log in the world's directory (`rank<i>.log`): the
+  steps of its life (joined, returned, closed), `faulthandler`'s traceback
+  of a rank that crashes, and of each of a rank's threads when it gets
+  `DUMP_SIGNAL`. A world that outlives its `timeout` sends that signal to
+  every rank still alive, prints each rank's log (where each hangs), then
+  raises `TimeoutError`; a world with a failed rank prints the logs before
+  it raises. (No traceback is dumped on a timer: faulthandler's watchdog
+  thread reads the frames of a thread that runs on, and ended a rank with
+  SIGSEGV on the GPUs);
 * a rank that raises makes its process exit non-zero, the other ranks are
   terminated, and the parent raises.
 
@@ -29,10 +38,11 @@ collective.
 from __future__ import annotations
 
 import datetime
-import gc
+import faulthandler
 import math
 import os
 import shutil
+import signal
 import sys
 import tempfile
 import time
@@ -43,6 +53,7 @@ import torch.multiprocessing as mp
 
 STORE_NAME = "store"
 RESULT_NAME = "result.pt"
+DUMP_SIGNAL = signal.SIGUSR1  # a rank dumps every thread's traceback into its log when it gets it
 
 _STORE = None  # the world's store while this process is in a world
 _ARRIVALS: dict = {}  # calls of `wait_idle` per name and set of ranks, in this world
@@ -51,14 +62,6 @@ _ARRIVALS: dict = {}  # calls of `wait_idle` per name and set of ranks, in this 
 def backend(device) -> str:
     """NCCL for CUDA tensors, gloo for CPU tensors (gloo has no CUDA all_gather)."""
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
-
-
-def refuse_gpu_world(world_size: int, device) -> None:
-    """Raise for a world of more than one NCCL rank (one a GPU)."""
-    if torch.device(device).type == "cuda" and world_size > 1:
-        raise NotImplementedError(
-            f"a world of {world_size} GPUs is refused: runs over several GPUs hung after their first world "
-            "(ROADMAP.md, queue 3); one GPU, or --device c for gloo CPU ranks, runs")
 
 
 def init_world(rank: int, world_size: int, store_path: str, device="cpu", timeout: float | None = None) -> None:
@@ -72,7 +75,6 @@ def init_world(rank: int, world_size: int, store_path: str, device="cpu", timeou
     """
     global _STORE
     device = torch.device(device)
-    refuse_gpu_world(world_size, device)
     if device.type == "cuda":
         os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "0"
         torch.cuda.set_device(rank)
@@ -85,19 +87,18 @@ def init_world(rank: int, world_size: int, store_path: str, device="cpu", timeou
 
 
 def close_world() -> None:
-    """Release the CUDA graphs the fused loop keeps (`fused._LAST_RUN`), then destroy the process group.
+    """Free every CUDA graph of the fused loops (`fused.release_graphs`), then destroy the process group.
 
     `destroy_process_group` waits forever on NCCL while a CUDA graph that
     captured one of the group's collectives is alive (seen with two ranks on
-    H100s, torch 2.11 and NCCL 2.28.9); with the graphs freed first it
-    returns at once.
+    H100s, torch 2.11 and NCCL 2.28.9), wherever the last reference to the
+    graph is held; with the graphs reset first it returns at once.
     """
     global _STORE
     if dist.get_backend() == "nccl":
         from ..inference import fused
 
-        fused._LAST_RUN = None
-        gc.collect()  # a run and its graphs hold each other in a reference cycle
+        fused.release_graphs()
         torch.cuda.synchronize()
     dist.destroy_process_group()
     _STORE = None
@@ -135,18 +136,62 @@ def wait_idle(name: str, ranks=None, poll: float = 0.05) -> None:
         time.sleep(poll)
 
 
+def _log_path(tmp: str, index: int) -> str:
+    return os.path.join(tmp, f"rank{index}.log")
+
+
 def _rank_entry(index, fn, world, store_path, device, result_path, args, timeout):
+    log = open(_log_path(os.path.dirname(store_path), index), "a", buffering=1)
+
+    def step(what):
+        log.write(f"[rank {index} {time.strftime('%H:%M:%S')}] {what}\n")
+
+    faulthandler.enable(file=log, all_threads=True)  # a crash (SIGSEGV, SIGABRT, ...) leaves its traceback
+    faulthandler.register(DUMP_SIGNAL, file=log, all_threads=True)
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)
     if index:
         sys.stdout = open(os.devnull, "w")
+        sys.stderr.flush()
+        os.dup2(log.fileno(), 2)  # the native libraries' messages too
+        sys.stderr = log
+    step("started")
     init_world(index, world, store_path, device, timeout)
+    step("joined the world")
     try:
         result = fn(*args)
+        step("returned")
         if index == 0:
             torch.save(result, result_path)
     finally:
         close_world()
+        step("closed the world")
+
+
+def _last_words(tmp: str, world: int, tail: int = 8000) -> str:
+    """Each rank's logged steps, then the rest of its log (its standard error, tracebacks) up to its last `tail`
+    characters, for a world that did not finish."""
+    parts = []
+    for index in range(world):
+        try:
+            with open(_log_path(tmp, index)) as f:
+                lines = f.read().splitlines()
+        except FileNotFoundError:
+            lines = []
+        steps = [ln for ln in lines if ln.startswith(f"[rank {index} ")]
+        rest = "\n".join(ln for ln in lines if not ln.startswith(f"[rank {index} "))[-tail:]
+        parts.append(f"--- rank {index}: {' | '.join(steps) or 'no step logged'}\n{rest}")
+    return "\n".join(parts)
+
+
+def _joined(ctx, tmp: str, world: int, deadline: float) -> bool:
+    """One wait of at most 5 s for the ranks (True once all have ended); a rank that failed raises here, after
+    every rank's last steps and traceback are printed to standard error."""
+    try:
+        return ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic())))
+    except (mp.ProcessRaisedException, mp.ProcessExitedException):
+        print(_last_words(tmp, world), file=sys.stderr, flush=True)
+        raise
 
 
 def launch(fn, world_size: int, *args, device="cpu", timeout: float | None = None,
@@ -155,10 +200,10 @@ def launch(fn, world_size: int, *args, device="cpu", timeout: float | None = Non
 
     `fn` must be importable by name (a module-level function): the ranks are
     spawned. Raises when a rank raises, or `TimeoutError` once `timeout`
-    seconds have passed (None: no limit), with every rank terminated.
+    seconds have passed (None: no limit), with every rank terminated and each
+    rank's last steps and traceback printed to standard error.
     `collective_timeout` is `init_world`'s `timeout`.
     """
-    refuse_gpu_world(world_size, device)
     tmp = tempfile.mkdtemp(prefix="hybridode_world_")
     try:
         store, result = os.path.join(tmp, STORE_NAME), os.path.join(tmp, RESULT_NAME)
@@ -166,13 +211,21 @@ def launch(fn, world_size: int, *args, device="cpu", timeout: float | None = Non
                                  args=(fn, world_size, store, str(device), result, args, collective_timeout),
                                  nprocs=world_size, join=False, start_method="spawn")
         deadline = math.inf if timeout is None else time.monotonic() + timeout
-        while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
+        while not _joined(ctx, tmp, world_size, deadline):
             if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        os.kill(p.pid, DUMP_SIGNAL)
+                time.sleep(2.0)  # the dumps are written from the ranks' signal handlers
+                print(_last_words(tmp, world_size), file=sys.stderr, flush=True)
                 for p in ctx.processes:
                     if p.is_alive():
                         p.terminate()
                 for p in ctx.processes:
                     p.join(10)
+                    if p.is_alive():
+                        p.kill()
+                        p.join(10)
                 raise TimeoutError(f"a world of {world_size} ranks did not finish within {timeout} s")
         return torch.load(result, weights_only=False)
     finally:

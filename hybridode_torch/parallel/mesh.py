@@ -138,12 +138,21 @@ def all_gather_rows(t: torch.Tensor, group, n: int) -> torch.Tensor:
 
 def barrier(mesh=None) -> None:
     """Wait for every rank of `mesh`: one all-reduce along each of its axes in turn (after the first axis a
-    rank knows its row arrived, after the second that every row did). Nothing without a mesh."""
+    rank knows its row arrived, after the second that every row did). Nothing without a mesh.
+
+    The host waits too: an NCCL all-reduce returns at once, its kernel queued,
+    so on CUDA the device is synchronised before this returns. Without it two
+    ranks read the file system on either side of rank 0's write and took
+    different branches of `reload_best`, one collective apart: the next
+    collective never completed (the two-world check on four H100s).
+    """
     if mesh is None:
         return
     on = "cuda" if _device_type() == "cuda" else "cpu"
     for name in mesh.mesh_dim_names:
         dist.all_reduce(torch.zeros(1, device=on), group=mesh.get_group(name))
+    if on == "cuda":
+        torch.cuda.synchronize()
 
 
 def replicate(tree, group=None, src: int = 0):

@@ -28,9 +28,18 @@ recorded step, R the largest record count; slot j's one vector-Jacobian
 product covers every row that has a record there, and the cotangents of the
 other rows are masked to zero.
 
-The field's parameters reach the backward as the leaves of `args` that
+The field's parameters reach the backward as the tensors of `args` that
 require grad (tensors, and the parameters of any `nn.Module` in the tree,
 such as a `ParamTree`); frozen leaves and the dose context get no gradient.
+
+Under `torch.func.vmap` (JAX's vmap of its `custom_vjp`, the batched
+restarts of hybridode/inference/fused.py:385) the solver's `vmap` rule
+solves the lanes one after the other, each as the plain solve of that lane's
+state and tensors (`args` seen as nests of dicts), and stacks the results.
+So each lane takes its own solve's steps and gets its gradients by
+construction; the solves read the host as the plain one does (they run
+outside the vmap), and the overflow warning comes once a call when any lane
+overflowed.
 """
 
 from __future__ import annotations
@@ -43,36 +52,78 @@ import torch
 from .dopri5 import Dopri5Stats, finish, integrate, replay_step, start
 
 
-def _grad_leaves(tree) -> list:
-    """The tensors of `tree` that require grad, each once, in a fixed order."""
-    if isinstance(tree, torch.Tensor):
-        found = [tree] if tree.requires_grad else []
-    elif isinstance(tree, torch.nn.Module):
-        found = [p for p in tree.parameters() if p.requires_grad]
-    elif isinstance(tree, dict):
-        found = [x for v in tree.values() for x in _grad_leaves(v)]
-    elif isinstance(tree, (list, tuple)):
-        found = [x for v in tree for x in _grad_leaves(v)]
-    else:
-        found = []
-    return list({id(x): x for x in found}.values())
+def _flatten(tree):
+    """-> (the distinct tensors of `tree` in a fixed order, `build`): `build(tensors)` is the tree with `tensors` in
+    their places. An `nn.Module` becomes the nest of dicts (lists for a `ModuleList`) of its parameters, buffers
+    and submodules, which the fields read as they read a `ParamTree`."""
+    tensors, index = [], {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            i = index.setdefault(id(x), len(tensors))
+            if i == len(tensors):
+                tensors.append(x)
+            return lambda ts: ts[i]
+        if isinstance(x, torch.nn.ModuleList):
+            x = list(x)
+        elif isinstance(x, torch.nn.Module):
+            x = {k: v for part in (x._parameters, x._buffers, x._modules) for k, v in part.items() if v is not None}
+        if isinstance(x, dict):
+            parts = {k: walk(v) for k, v in x.items()}
+            return lambda ts: {k: p(ts) for k, p in parts.items()}
+        if isinstance(x, (list, tuple)):
+            parts = [walk(v) for v in x]
+            if hasattr(x, "_fields"):  # a NamedTuple such as the dose context
+                return lambda ts: type(x)(*(p(ts) for p in parts))
+            return lambda ts: type(x)(p(ts) for p in parts)
+        return lambda ts: x
+
+    return tensors, walk(tree)
 
 
-def _forward(field, y0, ts, args, rtol, atol, max_steps, max_record, barriers, per_row, record):
+class _Static:
+    """What a solve's `_Adjoint` carries besides its tensors: the field and its `args`, the solver's settings,
+    whether grad mode was on (a solve records its steps only then, and only when a tensor needs a gradient), and
+    whether the solve warns of a record overflow itself (a lane of a vmapped call leaves that to the call).
+    `saved` hands the forward's records to `setup_context`."""
+
+    def __init__(self, field, args, build, config, record: bool, warn: bool = True):
+        self.field, self.args, self.build, self.config = field, args, build, config
+        self.record, self.warn, self.saved = record, warn, None
+
+
+def _warn_record_overflow(config, recorded_all):
+    if config["max_record"] < config["max_steps"] and not bool(recorded_all.all()):
+        warnings.warn(
+            "odeint_dopri5_adjoint: a solve accepted more steps than max_record; the backward pass leaves the "
+            "overflow steps out of the gradients (stats.recorded_all=False). Raise max_record (it defaults to "
+            "max_steps, which can never truncate).",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+
+
+def _forward(static: _Static, y0, tensors):
     """The recording solve, without gradient -> (solve, ys, stats, records or None).
 
     Records are (t, h_eff, t_new, y, valid), each stacked over R slots;
     `valid` (per row only) marks the slots a row has filled.
     """
+    c = static.config
+    per_row, max_record = c["per_row"], c["max_record"]
+    record = static.record and (y0.requires_grad or any(x.requires_grad for x in tensors))
     with torch.no_grad():
-        s, carry = start(field, y0, ts, args, rtol, atol, barriers, per_row)
+        s, carry = start(static.field, y0, c["ts"], static.args, c["rtol"], c["atol"], c["barriers"], per_row)
         steps = []
-        carry = integrate(s, carry, max_steps, budget=max_steps, on_step=steps.append if record else None)
+        carry = integrate(s, carry, c["max_steps"], budget=c["max_steps"],
+                          on_step=steps.append if record else None)
         out, stats = finish(s, carry)
         n_acc = carry[6]
         n_rec = torch.clamp(n_acc, max=max_record)  # every accepted step is recorded until the buffer is full
         recorded_all = n_rec == n_acc
         stats = stats._replace(recorded_all=recorded_all[..., 0] if per_row else recorded_all)
+        if static.warn:
+            _warn_record_overflow(c, stats.recorded_all)
         if not record:
             return s, out, stats, None
         n_slots = int(n_rec.max()) if steps else 0
@@ -93,19 +144,35 @@ def _forward(field, y0, ts, args, rtol, atol, max_steps, max_record, barriers, p
 
 
 class _Adjoint(torch.autograd.Function):
+    """(static, y0, *tensors of args) -> (ys, n_steps, n_accepted, success, recorded_all).
+
+    Under `torch.func.vmap` (the batched restarts) its `vmap` rule applies the
+    plain `_Adjoint` to each lane's slices in turn and stacks the outputs, so
+    each lane takes the steps and gets the gradients of its solve alone.
+    """
+
     @staticmethod
-    def forward(ctx, config, y0, *leaves):
-        s, out, stats, records = _forward(y0=y0, record=True, **config)
-        ctx.solve, ctx.records = s, records
-        ctx.save_for_backward(*leaves)
-        flags = (stats.n_steps, stats.n_accepted, stats.success, stats.recorded_all)
-        ctx.mark_non_differentiable(*flags)
-        return (out, *flags)
+    def forward(static, y0, *tensors):
+        s, out, stats, records = _forward(static, y0, tensors)
+        static.saved = s, records
+        return out, stats.n_steps, stats.n_accepted, stats.success, stats.recorded_all
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        static = inputs[0]
+        ctx.solve, ctx.records = static.saved
+        static.saved = None
+        ctx.save_for_backward(*inputs[2:])
+        ctx.mark_non_differentiable(*output[1:])
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, out_bar, *_):
-        s, leaves = ctx.solve, ctx.saved_tensors
+        if ctx.records is None:
+            raise RuntimeError("odeint_dopri5_adjoint: this solve recorded no step for a backward pass")
+        s, tensors = ctx.solve, ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        leaves = [x for x, n in zip(tensors, need) if n]
         rec_t, rec_h, rec_tn, rec_y, valid = ctx.records
         y_bar = torch.zeros_like(out_bar[0])
         leaf_bars = [torch.zeros_like(x) for x in leaves]
@@ -127,8 +194,28 @@ class _Adjoint(torch.autograd.Function):
             for acc, g in zip(leaf_bars, grads[1:]):
                 if g is not None:
                     acc += g
+        bars = iter(leaf_bars)
         # ys[0] is y0 itself.
-        return (None, y_bar + out_bar[0], *leaf_bars)
+        return (None, y_bar + out_bar[0], *(next(bars) if n else None for n in need))
+
+    @staticmethod
+    def vmap(info, in_dims, static, y0, *tensors):
+        for name in ("ts", "barriers"):
+            x = static.config[name]
+            if torch.is_tensor(x) and torch._C._functorch.is_functorch_wrapped_tensor(x):
+                raise NotImplementedError(f"odeint_dopri5_adjoint under torch.func.vmap with a batched {name}")
+
+        def lane(x, d, r):
+            return x if d is None else x.select(d, r)
+
+        outs = []
+        for r in range(info.batch_size):
+            mine = [lane(x, d, r) for x, d in zip(tensors, in_dims[2:])]
+            solo = _Static(static.field, static.build(mine), static.build, static.config, static.record, warn=False)
+            outs.append(_Adjoint.apply(solo, lane(y0, in_dims[1], r), *mine))
+        out = tuple(torch.stack(x) for x in zip(*outs))
+        _warn_record_overflow(static.config, out[-1])
+        return out, (0,) * len(out)
 
 
 def odeint_dopri5_adjoint(
@@ -152,25 +239,15 @@ def odeint_dopri5_adjoint(
     gradients and reports `stats.recorded_all` False; with `max_record <
     max_steps` such a solve also raises a RuntimeWarning naming
     `max_record` (one host read a solve). When no gradient is needed (grad
-    mode off, or neither `y0` nor any leaf of `args` requires grad) nothing
-    is recorded, and the stats are the same.
+    mode off, or neither `y0` nor any tensor of `args` requires grad) nothing
+    is recorded, and the stats are the same. Under `torch.func.vmap` each lane
+    is a solve of its own (the module docstring).
     """
     if max_record is None:
         max_record = max_steps
-    config = dict(field=field, ts=ts, args=args, rtol=rtol, atol=atol, max_steps=max_steps, max_record=max_record,
-                  barriers=barriers, per_row=per_row)
-    leaves = _grad_leaves(args)
-    if torch.is_grad_enabled() and (y0.requires_grad or leaves):
-        out, n_steps, n_acc, success, recorded_all = _Adjoint.apply(config, y0, *leaves)
-        stats = Dopri5Stats(n_steps=n_steps, n_accepted=n_acc, success=success, recorded_all=recorded_all)
-    else:
-        _, out, stats, _ = _forward(y0=y0, record=False, **config)
-    if max_record < max_steps and not bool(stats.recorded_all.all()):
-        warnings.warn(
-            "odeint_dopri5_adjoint: a solve accepted more steps than max_record; the backward pass leaves the "
-            "overflow steps out of the gradients (stats.recorded_all=False). Raise max_record (it defaults to "
-            "max_steps, which can never truncate).",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-    return out, stats
+    config = dict(ts=ts, rtol=rtol, atol=atol, max_steps=max_steps, max_record=max_record, barriers=barriers,
+                  per_row=per_row)
+    tensors, build = _flatten(args)
+    static = _Static(field, args, build, config, record=torch.is_grad_enabled())
+    out, n_steps, n_acc, success, recorded_all = _Adjoint.apply(static, y0, *tensors)
+    return out, Dopri5Stats(n_steps=n_steps, n_accepted=n_acc, success=success, recorded_all=recorded_all)

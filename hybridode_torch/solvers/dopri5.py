@@ -38,10 +38,16 @@ would otherwise put `0 * inf` into the backward pass. As in JAX, a rejected
 trial whose stages overflow can still leave `0 * inf = NaN` in the backward
 pass through the select.
 
-Not ported: `checkpoint_steps` (a `jax.checkpoint` around each trial step).
-Autograd keeps every trial step's intermediates instead: at batch 50, D=6 and
-256 trial steps, the six field evaluations, the stage sums and the dense
-output come to some 0.25 MB a step, tens of MB a solve.
+`checkpoint_steps=True` (JAX's keyword, dopri5.py:184, 269, a
+`jax.checkpoint` around each trial step there) runs each chunk of 64 trial
+steps under `torch.utils.checkpoint` (non-reentrant): the backward pass
+recomputes the chunk from its start instead of keeping its intermediates. It
+changes no result, only memory and time. The port defaults to False where
+JAX defaults to True: autograd keeps every trial step's intermediates, at the
+CLI's batch of 50 patients, D=6 and 256 trial steps (seven stages, the stage
+sums and the dense output, some 0.25 MB a step) tens of MB a solve, which an
+80 GB card holds, while a recompute would add forward work to every training
+step; JAX took the option for a 16 GB TPU.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import tableaus
 
@@ -284,22 +291,32 @@ def trial_step(s: Solve, carry, budget: Optional[int] = None):
     return carry, (t, h_eff, t_new, y, take)
 
 
-def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_step=None):
+def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_step=None,
+              checkpoint_steps: bool = False):
     """Trial steps in chunks of 64 until every row is done -> the last carry.
 
     A row is done when it has finished or spent its `budget`. Done rows are
     frozen by the masks, so stopping at a chunk boundary gives what the full
     ceil(max_steps / 64) * 64 steps give. Inside `full_budget()` all of them
     run and nothing is read on the host. `on_step` gets each step's record.
+    With `checkpoint_steps` (and grad mode on) each chunk runs under
+    `torch.utils.checkpoint`, non-reentrant: its backward recomputes it.
     """
-    for _ in range(max(1, -(-max_steps // _CHUNK_SIZE))):
-        done = carry[-1] if budget is None else carry[-1] | (carry[5] >= budget)
-        if not _FULL_BUDGET and bool(done.all()):  # the one host sync of a chunk
-            break
+
+    def chunk(*carry):
         for _ in range(_CHUNK_SIZE):
             carry, rec = trial_step(s, carry, budget)
             if on_step is not None:
                 on_step(rec)
+        return carry
+
+    checkpointed = checkpoint_steps and torch.is_grad_enabled()
+    for _ in range(max(1, -(-max_steps // _CHUNK_SIZE))):
+        done = carry[-1] if budget is None else carry[-1] | (carry[5] >= budget)
+        if not _FULL_BUDGET and bool(done.all()):  # the one host sync of a chunk
+            break
+        carry = (torch.utils.checkpoint.checkpoint(chunk, *carry, use_reentrant=False) if checkpointed
+                 else chunk(*carry))
     return carry
 
 
@@ -331,6 +348,7 @@ def odeint_dopri5(
     rtol: float = 1e-7,
     atol: float = 1e-8,
     max_steps: int = 256,
+    checkpoint_steps: bool = False,
     barriers=None,
     per_row: bool = False,
 ):
@@ -341,6 +359,10 @@ def odeint_dopri5(
     `barriers`: optional sorted times that steps may not cross (they may start
     on one), for forcing with jumps at known times. With `per_row=True` every
     row of `y0` (all axes but the last) is its own solve.
+    `checkpoint_steps=True` recomputes each chunk of 64 trial steps in the
+    backward pass instead of keeping it (`torch.utils.checkpoint`): the same
+    result and gradients in less memory. Default False, unlike JAX's True (the
+    module docstring says why).
     """
     s, carry = start(field, y0, ts, args, rtol, atol, barriers, per_row)
-    return finish(s, integrate(s, carry, max_steps))
+    return finish(s, integrate(s, carry, max_steps, checkpoint_steps=checkpoint_steps))

@@ -100,17 +100,40 @@ def test_phase_10_reads_the_dryrun_ok_lines():
 
 def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
     """The `kernels` JSON carries phase 10's paths beside the others: `evaluate_sharded` (4 launches, one a chunk)
-    and the DP fused training (0)."""
+    and the DP fused training (0); and phases 5 and 8's new paths: the native generator, the lockstep restarts
+    batched and in turn, the checkpoint_steps probe (0 each)."""
     row = dict(max_abs_err=1e-6, ms=0.19, device_ms=0.06, plain_ms=260.0, bound_ms=0.0014, bound_by="operations")
     rk4 = dict(roche_rk4_launches=4)
     none = dict(roche_rk4_launches=0)
     more = dict(evaluate_horizon=rk4, evaluate_ensemble_horizon=rk4, flow_evaluate=rk4, flow=none, members=none,
                 ensemble=none, residual=none, run_eval=none)
-    line = chip_smoke.kernels_line([row], 4, none, none, more, dict(train=none, create_data=none),
+    line = chip_smoke.kernels_line([row], 4, dict(none, checkpoint_steps=none), none, more,
+                                   dict(train=none, create_data=dict(none, native=none),
+                                        restarts=dict(vmap=none, seq=none)),
                                    dict(roche_rk4_launches=dict(gpu=0, vmap=0)),
                                    dict(evaluate_sharded=rk4, dp_fused=none))
     (k,) = line["kernels"]
-    assert k["launches"] == 4 and k["launches_by_path"]["evaluate_sharded"] == 4
-    assert k["launches_by_path"]["fused_dp"] == 0 and k["launches_by_path"]["fused_vmap"] == 0
+    paths = k["launches_by_path"]
+    assert k["launches"] == 4 and paths["evaluate_sharded"] == 4
+    assert paths["fused_dp"] == 0 and paths["fused_vmap"] == 0
+    assert [paths[p] for p in ("create_data_native", "lockstep_vmap", "lockstep_seq", "checkpoint_steps_probe")] == \
+        [0, 0, 0, 0]
     assert set(k) >= {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms"}
+
+
+def test_phase_8_holds_the_native_generator_against_data_s123():
+    """`_generate_native` (the host's C++ solve; no card needed): the seed-123 cohort is data_s123's, and its
+    latents lie within NATIVE_RTOL / NATIVE_ATOL of a reference state's (here the committed file's own)."""
+    import os
+
+    import pytest
+
+    from hybridode_torch import native
+    from hybridode_torch.utils.pickling import load_pickle
+
+    if not native.available():
+        pytest.skip("the native library does not build here")
+    want = load_pickle(os.path.join(os.path.dirname(__file__), os.pardir, "data_s123", "datafile_dose_exp.pkl"))["state"]
+    got = chip_smoke._generate_native(want)
+    assert got["faults"] == [] and got["latents_beyond_tol_vs_gpu"] == 0 and got["seconds"] > 0

@@ -109,10 +109,12 @@ def test_main_parses_the_reference_flags(tmp_path, capsys):
 
 
 # The parallel flags are ported (hybridode_torch/parallel/): what they cannot run raises JAX's ValueError before any
-# rank starts; the case ids keep the names these cases had while the flags raised NotImplementedError.
+# rank starts; the case ids keep the names these cases had while the flags raised NotImplementedError. The batched
+# restarts over the lockstep adjoint ("item 6", error None) are ported too: that case runs them and finds the
+# checkpoint and the CSV.
 @pytest.mark.parametrize("flags,error,match", [
-    pytest.param(["--restart_mode", "vmap", "--step_control", "lockstep"], NotImplementedError, "item 6",
-                 id="flags0-item 6"),
+    pytest.param(["--restart_mode", "vmap", "--step_control", "lockstep", "--restart", "2", "--arg_itr", "1",
+                  "--sample", "400", "--batch_size", "100"], None, None, id="flags0-item 6"),
     pytest.param(["--restart_mode", "shard", "--restart_devices", "2"], ValueError,
                  "n_restart 3 not divisible by restart_devices 2", id="flags1-item 3"),
     pytest.param(["--dp", "2", "--restart_mode", "vmap"], ValueError, "--restart_mode=vmap does not compose with --dp",
@@ -120,7 +122,14 @@ def test_main_parses_the_reference_flags(tmp_path, capsys):
     pytest.param(["--eval_mesh", "4x2", "--batch_size", "50"], ValueError,
                  r"batch_size 50 not divisible by the data mesh axis \(4\)", id="flags3-item 3"),
 ])
-def test_unported_flags_raise(flags, error, match, tmp_path):
+def test_unported_flags_raise(flags, error, match, tmp_path, capsys):
+    argv = ["--device", "c", "--data_path", COHORT, "--path", str(tmp_path) + "/"] + flags
+    if error is None:
+        main(argv)
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert lines[0] == "Training with 400 samples" and [ln.split(",")[0] for ln in lines[-4:]] == CSV
+        assert os.listdir(tmp_path) == ["VI_LSTMEncoder_HybridDecoder.pkl"]
+        return
     with pytest.raises(error, match=match):
-        main(["--device", "c", "--data_path", COHORT, "--path", str(tmp_path) + "/"] + flags)
+        main(argv)
     assert not list(tmp_path.iterdir())

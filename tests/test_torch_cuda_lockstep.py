@@ -33,7 +33,7 @@ from hybridode_torch.cli import create_data
 from hybridode_torch.cli.common import build_sim_model
 from hybridode_torch.config import DataConfig, RocheConfig
 from hybridode_torch.data import SyntheticCohort
-from hybridode_torch.fields import doses_from_actions, init_roche_field, roche_field
+from hybridode_torch.fields import DoseContext, doses_from_actions, init_roche_field, roche_field
 from hybridode_torch.inference import elbo, init_vi
 from hybridode_torch.solvers import odeint_dopri5_adjoint
 
@@ -140,3 +140,52 @@ def test_cohort_written_on_the_card_loads_on_the_cpu(cuda_device, tmp_path):
     assert not cpu.data_train["latents"].is_cuda and not hasattr(cpu, "rng")
     gpu = SyntheticCohort.load(path, device=cuda_device)
     assert torch.equal(gpu.data_test["measurements"].cpu(), cpu.data_test["measurements"])
+
+
+
+class _Lane(torch.nn.Module):
+    """One lane's lockstep adjoint solve of 8 patients on the Roche field `ode` -> (ys, loss, trial, accepted)."""
+
+    def __init__(self, ode):
+        super().__init__()
+        self.ode = ode
+
+    def forward(self, y, times, amounts):
+        ys, st = odeint_dopri5_adjoint(roche_field, y, torch.arange(15.0, dtype=y.dtype, device=y.device),
+                                       (self.ode, DoseContext(times, amounts)), rtol=1e-7, atol=1e-8, max_steps=4096)
+        return ys, (ys[1:] ** 2).sum(), st.n_steps, st.n_accepted
+
+
+@pytest.mark.cuda
+def test_vmapped_lockstep_lanes_take_their_own_solves_steps_on_the_card(cuda_device):
+    """Three lanes of 8 patients each (three inits of the field, three blocks of the cohort's doses), float64 on the
+    card: `torch.func.vmap` of the lockstep adjoint solve, its loss summed outside the vmap, against each lane's
+    own solve on the card. The same trial and accepted steps a lane, trajectory and gradients within rtol 1e-10
+    of the largest entry (each lane's arithmetic is its own solve's, `solvers/adjoint.py`)."""
+    c = SyntheticCohort.load(COHORT, device="cpu")
+    odes, ctxs, y0 = [], [], []
+    for r in range(3):
+        odes.append(init_roche_field(torch.Generator().manual_seed(r), 6, device="cpu").to(cuda_device, torch.float64))
+        ctx = doses_from_actions(c.get_split("train", B, r)["actions"].double(), 1.0)
+        ctxs.append(type(ctx)(*(x.to(cuda_device) for x in ctx)))
+        y0.append(torch.rand(B, 6, generator=torch.Generator().manual_seed(10 + r), dtype=torch.float64) * 2)
+    y0 = torch.stack(y0).to(cuda_device)
+    names = [n for n, p in odes[0].named_parameters() if p.requires_grad]
+    stacked, _ = torch.func.stack_module_state(odes)
+    base = _Lane(copy.deepcopy(odes[0]).to("meta"))
+
+    def lane(params, y, times, amounts):
+        return torch.func.functional_call(base, {"ode." + n: p for n, p in params.items()}, (y, times, amounts))
+
+    y = y0.clone().requires_grad_()
+    ys, loss, n_steps, n_acc = torch.func.vmap(lane)(stacked, y, torch.stack([x.times for x in ctxs]),
+                                                     torch.stack([x.amounts for x in ctxs]))
+    grads = torch.autograd.grad(loss.sum(), [y] + [stacked[n] for n in names])
+    for r in range(3):
+        y_r = y0[r].clone().requires_grad_()
+        want_ys, want_loss, want_steps, want_acc = _Lane(odes[r])(y_r, ctxs[r].times, ctxs[r].amounts)
+        want = torch.autograd.grad(want_loss, [y_r] + [p for p in odes[r].parameters() if p.requires_grad])
+        assert (int(n_steps[r]), int(n_acc[r])) == (int(want_steps), int(want_acc)), r
+        torch.testing.assert_close(ys[r], want_ys.detach(), rtol=1e-10, atol=1e-10 * float(want_ys.detach().abs().max()))
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g[r], w, rtol=1e-10, atol=1e-10 * float(w.abs().max()))

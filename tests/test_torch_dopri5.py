@@ -248,3 +248,34 @@ def test_neural_field_lockstep_matches_jax(case):
     assert bool(got[3]) and bool(want[3])
     assert (int(got[1]), int(got[2])) == (int(want[1]), int(want[2]))
     np.testing.assert_allclose(got[0], want[0], rtol=RTOL64, atol=ATOL64)
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["lockstep", "per_row"])
+def test_checkpoint_steps_changes_no_value_and_no_gradient(per_row):
+    """`checkpoint_steps=True` (JAX's default; the port's is False) recomputes each chunk of 64 trial steps in the
+    backward pass: in float64 on 8 patients' doses, the trajectory, the step counts and the gradients with respect
+    to y0 and every trainable leaf are those without it, bit for bit."""
+    from hybridode_torch.data import SyntheticCohort
+    from hybridode_torch.fields import doses_from_actions, init_roche_field
+
+    c = SyntheticCohort.load(COHORT, device="cpu")
+    ctx = doses_from_actions(c.get_split("train", 8, 0)["actions"].double(), 1.0)
+    ode = init_roche_field(torch.Generator().manual_seed(0), 6, device="cpu").double()
+    leaves = [p for p in ode.parameters() if p.requires_grad]
+    y0 = torch.rand(8, 6, generator=torch.Generator().manual_seed(1), dtype=torch.float64) * 2
+    runs = []
+    for checkpoint_steps in (False, True):
+        y = y0.clone().requires_grad_()
+        ys, st = odeint_dopri5(roche_field, y, torch.arange(15, dtype=torch.float64), (ode, ctx), rtol=1e-7,
+                               atol=1e-8, max_steps=256 if per_row else 512, per_row=per_row,
+                               checkpoint_steps=checkpoint_steps)
+        grads = torch.autograd.grad((ys[1:] ** 2).sum(), [y] + leaves)
+        runs.append((ys.detach(), st.n_steps, grads))
+    (ys, n, grads), (ys_c, n_c, grads_c) = runs
+    assert torch.equal(ys, ys_c) and torch.equal(n, n_c) and int(n.max()) > 64  # more than one chunk
+    for g, g_c in zip(grads, grads_c):
+        assert torch.equal(g, g_c)
+    with torch.no_grad():  # without grad mode nothing is checkpointed, the same values
+        assert torch.equal(odeint_dopri5(roche_field, y0, torch.arange(15, dtype=torch.float64), (ode, ctx),
+                                         rtol=1e-7, atol=1e-8, max_steps=256 if per_row else 512, per_row=per_row,
+                                         checkpoint_steps=True)[0], ys)

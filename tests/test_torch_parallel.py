@@ -30,6 +30,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -350,14 +351,18 @@ def test_divisibility_errors():
 def test_cli_checks_refuse_before_any_rank_starts(monkeypatch, flags, message, on_gpus_only):
     """On a one-GPU machine (device_count patched to 1) a mesh of more than one rank raises JAX's mesh error;
     nothing ever puts two ranks on one card or moves to the CPU. On the CPU the same mesh is a world of gloo
-    ranks; the other refusals hold on either device."""
+    ranks, and with as many GPUs visible (patched) a world of as many GPU ranks; the other refusals hold on either
+    device."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     args = dict(restart_mode="seq", n_restart=3, dp_devices=None, restart_devices=None, eval_mesh=None,
                 batch_size=8, init_path=None, eval_only=False, device="cuda") | flags
     with pytest.raises(ValueError, match=message):
         common.check_parallel_flags(**args)
-    if on_gpus_only:
-        assert common.check_parallel_flags(**(args | dict(device="cpu"))) > 1
+    if on_gpus_only:  # a mesh the GPUs hold is a world of GPU ranks, as the CPU's is of gloo ranks
+        world = common.check_parallel_flags(**(args | dict(device="cpu")))
+        assert world > 1
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: world)
+        assert common.check_parallel_flags(**args) == world
     else:
         with pytest.raises(ValueError, match=message):
             common.check_parallel_flags(**(args | dict(device="cpu")))
@@ -376,15 +381,16 @@ def test_cli_parses_the_parallel_flags(monkeypatch, cli):
     assert (seen["dp_devices"], seen["restart_devices"], seen["eval_mesh"]) == (None, None, None)
 
 
-def test_a_failing_rank_fails_the_launch():
+def test_a_failing_rank_fails_the_launch(capfd):
     """Rank 1 raises while rank 0 waits in a barrier: the launch raises a rank's exception at once (rank 1's own,
-    or rank 0's, whose peer went away: whichever is found first) instead of hanging."""
-    import time
-
+    or rank 0's, whose peer went away: whichever is found first) instead of hanging, and prints each rank's
+    logged steps first."""
     t = time.monotonic()
     with pytest.raises(torch.multiprocessing.ProcessRaisedException):
         launch(_fail_on_rank_1, 2, device="cpu", timeout=120)
     assert time.monotonic() - t < 60
+    err = capfd.readouterr().err
+    assert "--- rank 0: " in err and "--- rank 1: " in err and "joined the world" in err
 
 
 def _fail_on_rank_1():
@@ -393,6 +399,28 @@ def _fail_on_rank_1():
     if dist.get_rank() == 1:
         raise RuntimeError("rank 1 fails")
     dist.barrier()
+
+
+def test_a_world_past_its_timeout_shows_where_each_rank_is(capfd):
+    """Rank 1 hangs in `_hang_on_rank_1` while rank 0 has returned: after the world's 9 s the launch has each rank
+    still alive dump its threads' tracebacks (faulthandler, on a signal), prints each rank's logged steps and
+    traceback, and raises TimeoutError, every rank ended."""
+    t = time.monotonic()
+    with pytest.raises(TimeoutError, match="did not finish within 9"):
+        launch(_hang_on_rank_1, 2, device="cpu", timeout=9)
+    assert time.monotonic() - t < 60
+    err = capfd.readouterr().err
+    rank0, rank1 = err[err.index("--- rank 0:"):err.index("--- rank 1:")], err[err.index("--- rank 1:"):]
+    assert "joined the world" in rank0 and "returned" in rank0
+    assert "joined the world" in rank1 and "returned" not in rank1
+    assert "_hang_on_rank_1" in rank1 and "most recent call first" in rank1
+
+
+def _hang_on_rank_1():
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        time.sleep(600)
 
 
 # --- the CLIs and the dryrun ---------------------------------------------------------------------------------------
@@ -486,8 +514,6 @@ def test_run_simulation_flow_dp_and_eval_mesh(cohort_path, tmp_path, capfd):
 
 
 def _sleep_on_rank_0_then_reduce():
-    import time
-
     import torch.distributed as dist
 
     if dist.get_rank() == 0:
@@ -503,20 +529,26 @@ def test_a_collective_held_past_the_collective_timeout_fails():
 
 
 def test_a_world_of_several_gpus_is_refused(monkeypatch):
-    """Runs over several GPUs hung after their first world (ROADMAP.md, queue 3): with 4 GPUs visible (patched),
-    `--dp 2` and a 2 x 1 evaluation mesh are refused before any rank starts, as is a launch of 2 NCCL ranks; a
-    world of one GPU is not. Without a GPU the dryrun's default device raises."""
+    """The name is the one this test had while worlds of 2+ GPUs were refused (they hung after their first world);
+    they run now (`launch.close_world` resets every CUDA graph first). With 4 GPUs visible (patched), `--dp 2`, a
+    2 x 1 evaluation mesh and a 2 x 2 shard of the lockstep restarts are worlds of 2, 2 and 4 ranks; with 1, each
+    raises JAX's mesh error before any rank starts. Without a GPU the dryrun's default device raises."""
     from hybridode_torch.parallel import dryrun
 
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     args = dict(restart_mode="seq", n_restart=3, dp_devices=None, restart_devices=None, eval_mesh=None,
                 batch_size=8, init_path=None, eval_only=False, device="cuda")
-    for flags in (dict(dp_devices=2), dict(eval_mesh=(2, 1))):
-        with pytest.raises(NotImplementedError, match=r"a world of 2 GPUs is refused.*queue 3"):
-            common.check_parallel_flags(**(args | flags))
+    cases = [(dict(dp_devices=2), 2, "requested a 2-device 'data' mesh but only 1 devices are available"),
+             (dict(eval_mesh=(2, 1)), 2, r"requested a 2x1 \('data', 'mc'\) mesh but only 1 devices are available"),
+             (dict(restart_mode="shard", n_restart=2, dp_devices=2), 4,
+              r"requested a 2x2 \('restart', 'data'\) mesh but only 1 devices are available")]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    for flags, world, _ in cases:
+        assert common.check_parallel_flags(**(args | flags)) == world
     assert common.check_parallel_flags(**args) == 1
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        launch(_fail_on_rank_1, 2, device="cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for flags, _, message in cases:
+        with pytest.raises(ValueError, match=message):
+            common.check_parallel_flags(**(args | flags))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device is available"):
             dryrun.main(["2"])

@@ -119,13 +119,23 @@ def test_run_simulation_flow_prints_the_contract_and_jax_loads_its_checkpoint(sm
 
 
 @pytest.mark.parametrize("mode", ["shard"])
-def test_run_simulation_flow_refuses_unported_restart_modes(small_data, tmp_path, mode):
-    """`--restart_mode shard` is ported; a restart count its devices do not divide raises JAX's ValueError before
-    anything runs or is written."""
+def test_run_simulation_flow_refuses_unported_restart_modes(small_data, tmp_path, mode, capfd, small_config):
+    """The name is the one this test had while the flow CLI refused `--restart_mode shard`, which is ported: a
+    restart count its devices do not divide raises JAX's ValueError before anything runs or is written; 2 restarts
+    over 2 gloo ranks (one lane a rank) run, rank 0 alone printing the contract and writing the one checkpoint."""
+    refused, path = tmp_path / "refused", str(tmp_path / "shard") + "/"
+    refused.mkdir()
     with pytest.raises(ValueError, match="n_restart 3 not divisible by restart_devices 2"):
-        run_simulation_flow.main(["--device", "c", "--data_path", small_data, "--path", str(tmp_path) + "/",
+        run_simulation_flow.main(["--device", "c", "--data_path", small_data, "--path", str(refused) + "/",
                                   "--restart_mode", mode, "--restart_devices", "2"])
-    assert not list(tmp_path.iterdir())
+    assert not list(refused.iterdir())
+    capfd.readouterr()
+    run_simulation_flow.main(["--device", "c", "--data_path", small_data, "--path", path, "--restart_mode", mode,
+                              "--restart", "2", "--restart_devices", "2", "--arg_itr", "2", "--sample", "40",
+                              "--batch_size", "8"])
+    lines = capfd.readouterr().out.strip().splitlines()
+    assert lines.count("Training with 40 samples") == 1 and _csv(lines)
+    assert os.listdir(path) == ["VI_FLOW_PlanarLSTMEncoder_HybridDecoder.pkl"]
 
 
 def test_run_eval_pickles_the_horizon_and_its_rmse_matches_jax(small_data, members, tmp_path, capsys, small_config):
