@@ -1,0 +1,4 @@
+"""The benchmark of hybridode_torch.
+
+    python3 benchmark/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
+"""
