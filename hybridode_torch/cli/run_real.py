@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import pickle
-import time
 
 import numpy as np
 import torch
@@ -131,10 +130,9 @@ def run(
         print("Overall best loss: {:.6f}".format(best_loss))
 
     data = dg.data_test
-    t = time.perf_counter()
-    x_hat = predict_test(params, model, data, T0).cpu().numpy()
     events = JSONLLogger(events_path)
-    events.log("predict_test", seconds=time.perf_counter() - t, patients=int(data["measurements"].shape[1]))
+    with events.span("predict_test", patients=int(data["measurements"].shape[1])):
+        x_hat = predict_test(params, model, data, T0).cpu().numpy()
     events.close()
 
     x, mask = data["measurements"].cpu().numpy(), data["masks"].cpu().numpy()

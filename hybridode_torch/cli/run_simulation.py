@@ -40,7 +40,6 @@ one GPU or moves to the CPU. `--restart_mode vmap` and `shard` compose with
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 import torch.distributed as dist
@@ -52,7 +51,7 @@ from ..eval import evaluate
 from ..parallel.eval import evaluate_sharded
 from ..inference import init_vi, load_checkpoint, variational_training_loop
 from ..parallel.launch import is_writer
-from ..utils.logging import JSONLLogger
+from ..utils.logging import RECORDER, JSONLLogger
 from . import common
 
 SCORE_NAMES = ("rmse_z0", "rmse_z0_sd", "cprs_z0", "rmse_x", "rmse_x_sd", "cprs_x")
@@ -191,7 +190,6 @@ def fit_and_evaluate(model, dg, generator, *, eval_only, init_path, niters, path
         dist.broadcast_object_list(state, src=0)
         generator.set_state(state[0])
 
-    t = time.perf_counter()
     scores = None
     if eval_mesh is not None:
         mesh = make_mesh_2d(*eval_mesh)
@@ -201,9 +199,10 @@ def fit_and_evaluate(model, dg, generator, *, eval_only, init_path, niters, path
     elif is_writer():
         scores = evaluate(params, model, dg, optim_config.batch_size, eval_config.t0, generator=generator,
                           device=device)
-    if is_writer():
+    if is_writer():  # the evaluation's span, with the seconds of its encodes, decodes, scores and bootstrap
         events = JSONLLogger(events_path)
-        events.log("evaluate", seconds=time.perf_counter() - t, **dict(zip(SCORE_NAMES, scores)))
+        request = RECORDER.last("evaluate" if eval_mesh is None else "evaluate_sharded")
+        events.export("evaluate", request, **dict(zip(SCORE_NAMES, scores)))
         events.close()
     return params, scores
 

@@ -20,6 +20,11 @@ samples. Per chunk and model the draw order is: for the flow posterior its
 point draw (B, D), then the MC draws (MC, B, D); for `kind="sim"` the MC
 draws alone (its point is the posterior mean). An ensemble draws member e's
 noise, then member m's.
+
+Each call of a public `evaluate*` function is a root span of its name
+(`utils/logging.py`); under it, each chunk's `encode` and `decode`, the
+`score` spans (the per-patient terms and their read to the host) and the
+`bootstrap` span (the scores and their bootstrap on the host).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from .. import resolve_device
 from ..inference.elbo import VIModel, decode, encode
 from ..models import encoders, priors
+from ..utils.logging import root_span, span
 
 
 def crps_ensemble(truth: torch.Tensor, samples: torch.Tensor) -> torch.Tensor:
@@ -79,7 +85,8 @@ def _chunk_forward(params, model: VIModel, batch, t0: int, eps, eps_point=None):
     `kind="flow"`: the point is the flow sample of `eps_point` (B, D), the MC
     latents the flow samples of `eps` (MC, B, D).
     """
-    enc = encode(params, model, batch["measurements"][:t0], batch["actions"][:t0], batch["masks"][:t0])
+    with span("encode"):
+        enc = encode(params, model, batch["measurements"][:t0], batch["actions"][:t0], batch["masks"][:t0])
     if model.kind == "flow":
         K = model.encoder_spec.num_flows
         z0_hat = encoders.planar_reparameterize(enc, K, eps_point)[2]
@@ -90,7 +97,8 @@ def _chunk_forward(params, model: VIModel, batch, t0: int, eps, eps_point=None):
     mc, B, D = eps.shape
     z_all = torch.cat([z0_hat[None], z_mc]).reshape((mc + 1) * B, D)  # the point first, then the draws MC-major
     actions_all = batch["actions"].repeat(1, mc + 1, 1)  # (T, (MC+1)*B, A), in z_all's order
-    x_all, _ = decode(params, model, z_all, {"actions": actions_all})
+    with span("decode"):
+        x_all, _ = decode(params, model, z_all, {"actions": actions_all})
     x_all = x_all.reshape(x_all.shape[0], mc + 1, B, -1)
     x_hat = x_all[:, 0]  # (T, B, obs)
     x_mc = x_all[:, 1:].transpose(0, 1)  # (MC, T, B, obs)
@@ -99,24 +107,26 @@ def _chunk_forward(params, model: VIModel, batch, t0: int, eps, eps_point=None):
 
 def _point_terms(batch, t0: int, expert_dim: int, z0_hat, z_mc, x_hat, x_mc):
     """Per-patient (err_z0, err_x, crps_z0, crps_x) of full-horizon decodes."""
-    z0 = batch["latents"][0]
-    x_test = batch["measurements"][t0:]
-    err_z0 = torch.sum((z0[:, :expert_dim] - z0_hat[:, :expert_dim]) ** 2, dim=1)  # (B,)
-    err_x = _masked_mean_sq_err(x_test, x_hat[t0:], batch["masks"][t0:], dims=(0, 2))  # (B,)
+    with span("score"):
+        z0 = batch["latents"][0]
+        x_test = batch["measurements"][t0:]
+        err_z0 = torch.sum((z0[:, :expert_dim] - z0_hat[:, :expert_dim]) ** 2, dim=1)  # (B,)
+        err_x = _masked_mean_sq_err(x_test, x_hat[t0:], batch["masks"][t0:], dims=(0, 2))  # (B,)
 
-    z_samples = torch.movedim(z_mc[:, :, :expert_dim], 0, -1)  # (B, D_e, MC)
-    crps_z0 = torch.mean(crps_ensemble(z0[:, :expert_dim], z_samples), dim=1)  # (B,)
+        z_samples = torch.movedim(z_mc[:, :, :expert_dim], 0, -1)  # (B, D_e, MC)
+        crps_z0 = torch.mean(crps_ensemble(z0[:, :expert_dim], z_samples), dim=1)  # (B,)
 
-    x_samples = torch.movedim(x_mc[:, t0:], 0, -1)  # (T', B, obs, MC)
-    crps_x = torch.mean(crps_ensemble(x_test, x_samples), dim=(0, 2))  # (B,)
+        x_samples = torch.movedim(x_mc[:, t0:], 0, -1)  # (T', B, obs, MC)
+        crps_x = torch.mean(crps_ensemble(x_test, x_samples), dim=(0, 2))  # (B,)
     return err_z0, err_x, crps_z0, crps_x
 
 
 def _horizon_terms(batch, t0: int, x_hat, x_mc):
     """Per-step, per-patient (err_x, crps_x), each (T', B), of full-horizon decodes."""
-    x_test = batch["measurements"][t0:]
-    err_x = _masked_mean_sq_err(x_test, x_hat[t0:], batch["masks"][t0:], dims=(2,))
-    crps_x = torch.mean(crps_ensemble(x_test, torch.movedim(x_mc[:, t0:], 0, -1)), dim=2)
+    with span("score"):
+        x_test = batch["measurements"][t0:]
+        err_x = _masked_mean_sq_err(x_test, x_hat[t0:], batch["masks"][t0:], dims=(2,))
+        crps_x = torch.mean(crps_ensemble(x_test, torch.movedim(x_mc[:, t0:], 0, -1)), dim=2)
     return err_x, crps_x
 
 
@@ -155,25 +165,27 @@ def _test_chunks(data_generator, batch_size: int, device):
 
 
 def _collect(outs, tots: list):
-    for acc, out in zip(tots, outs):
-        acc.append(out.cpu().numpy())
+    with span("score"):
+        for acc, out in zip(tots, outs):
+            acc.append(out.cpu().numpy())
 
 
 def _point_scores(err_z0, err_x, crps_z0, crps_x, verbose: bool):
     """The six numbers and the CSV tail from per-patient terms; patients with no observed entry
     (NaN err_x) are dropped."""
-    rmse_z0 = float(np.sqrt(np.mean(err_z0)))
-    rmse_z0_sd = bootstrap_rmse(err_z0)
+    with span("bootstrap"):
+        rmse_z0 = float(np.sqrt(np.mean(err_z0)))
+        rmse_z0_sd = bootstrap_rmse(err_z0)
 
-    cprs_z0 = float(np.mean(crps_z0))
-    cprs_z0_sd = float(np.std(crps_z0) / np.sqrt(len(crps_z0)))
+        cprs_z0 = float(np.mean(crps_z0))
+        cprs_z0_sd = float(np.std(crps_z0) / np.sqrt(len(crps_z0)))
 
-    err_x = err_x[~np.isnan(err_x)]
-    rmse_x = float(np.sqrt(np.mean(err_x)))
-    rmse_x_sd = bootstrap_rmse(err_x)
+        err_x = err_x[~np.isnan(err_x)]
+        rmse_x = float(np.sqrt(np.mean(err_x)))
+        rmse_x_sd = bootstrap_rmse(err_x)
 
-    cprs_x = float(np.mean(crps_x))
-    cprs_x_sd = float(np.std(crps_x) / np.sqrt(len(crps_x)))
+        cprs_x = float(np.mean(crps_x))
+        cprs_x_sd = float(np.std(crps_x) / np.sqrt(len(crps_x)))
 
     if verbose:
         print("rmse_z0,{:.4f},{:.4f}".format(rmse_z0, rmse_z0_sd))
@@ -185,18 +197,20 @@ def _point_scores(err_z0, err_x, crps_z0, crps_x, verbose: bool):
 
 def _horizon_scores(err_x, crps_x) -> dict:
     """Per-step RMSE and CRPS vectors (and their SEs) from (T', N) terms; NaN entries are skipped."""
-    return {
-        "rmse_x": np.sqrt(np.nanmean(err_x, axis=1)),
-        "rmse_x_sd": np.array([bootstrap_rmse(row[~np.isnan(row)]) for row in err_x]),
-        "cprs_x": np.mean(crps_x, axis=1),
-        "cprs_x_sd": np.std(crps_x, axis=1) / np.sqrt(crps_x.shape[1]),
-    }
+    with span("bootstrap"):
+        return {
+            "rmse_x": np.sqrt(np.nanmean(err_x, axis=1)),
+            "rmse_x_sd": np.array([bootstrap_rmse(row[~np.isnan(row)]) for row in err_x]),
+            "cprs_x": np.mean(crps_x, axis=1),
+            "cprs_x_sd": np.std(crps_x, axis=1) / np.sqrt(crps_x.shape[1]),
+        }
 
 
 def _seeded(generator: Optional[torch.Generator]) -> torch.Generator:
     return torch.Generator().manual_seed(0) if generator is None else generator
 
 
+@root_span
 def evaluate(params, model: VIModel, data_generator, batch_size: int, t0: int, mc_itr: int = 50,
              generator: Optional[torch.Generator] = None, verbose: bool = True, device=None):
     """Point + probabilistic metrics over the test fold, with the stdout CSV contract.
@@ -212,6 +226,7 @@ def evaluate(params, model: VIModel, data_generator, batch_size: int, t0: int, m
     return _point_scores(*(np.concatenate(t) for t in tots), verbose)
 
 
+@root_span
 def evaluate_horizon(params, model: VIModel, data_generator, batch_size: int, t0: int, mc_itr: int = 10,
                      generator: Optional[torch.Generator] = None, device=None) -> dict:
     """Per-time-step RMSE / CRPS vectors over the test fold past t0: a dict of numpy arrays
@@ -238,6 +253,7 @@ def _ensemble_chunks(params_e, model_e, params_m, model_m, data_generator, batch
     return [np.concatenate(t, axis=1 if horizon else 0) for t in tots]
 
 
+@root_span
 def evaluate_ensemble(params_e, model_e: VIModel, params_m, model_m: VIModel, data_generator, batch_size: int,
                       t0: int, mc_itr: int = 50, weight_expert=1.0, weight_ml=1.0,
                       generator: Optional[torch.Generator] = None, verbose: bool = True, device=None):
@@ -251,6 +267,7 @@ def evaluate_ensemble(params_e, model_e: VIModel, params_m, model_m: VIModel, da
     return _point_scores(*terms, verbose)
 
 
+@root_span
 def evaluate_ensemble_horizon(params_e, model_e: VIModel, params_m, model_m: VIModel, data_generator,
                               batch_size: int, t0: int, mc_itr: int = 10, weight_expert=1.0, weight_ml=1.0,
                               generator: Optional[torch.Generator] = None, device=None) -> dict:

@@ -25,8 +25,12 @@ counterpart of the while_loop's predicate. Nothing is read inside a window.
   one validation, then the trailing `niters % test_freq` steps, which move
   the final parameters but never the best.
 * The logging contract (the `Iter` lines, the CSV curve, the `val` and `done`
-  events) is replayed from the buffers at the end; a `window` event carries
-  each window's seconds, taken at its read. The checkpoint is written once,
+  events) is replayed from the buffers at the end. Each call is a `restart`
+  span (`utils/logging.py`), the root of every span of its run: a `window`
+  span a window, ended by its read, with the trial steps its graphs' DOPRI5
+  solves counted (below), a `tail` span, and each graph's `warmup` and
+  `capture`. The window spans of a run driven after its call returned are
+  recorded too, under its restart. The checkpoint is written once,
   at the end, if validation beat `best_on_disk`, and every `flush_every`-th
   window by `_FlushSink` (env HYBRIDODE_FLUSH_EVERY), which acts at the
   window's read and changes no device math.
@@ -39,7 +43,10 @@ every window after the first is all replays. The iteration's batch indices
 and noise reach the graph through static buffers filled by device-to-device
 copies, and Adam (`_Adam`) keeps its step count on the device. A captured
 decode reads nothing: the per-patient DOPRI5 runs its whole trial budget
-(`dopri5.full_budget`), which gives the early-exit result. The lockstep adjoint solver reads the host
+(`dopri5.full_budget`), which gives the early-exit result, and adds its live
+and run trial steps to its graph's tally on the device, which the window's
+one read brings back with the flag (not under `torch.func.vmap`, where
+nothing is counted). The lockstep adjoint solver reads the host
 inside its solve, so its restarts run this loop uncaptured. A capture that
 fails raises; nothing falls back to eager code or to the host loop.
 
@@ -73,7 +80,7 @@ import numpy as np
 import torch
 
 from ..solvers import dopri5
-from ..utils.logging import CSVCurveLogger, JSONLLogger
+from ..utils.logging import CSVCurveLogger, JSONLLogger, Span
 from . import checkpoint as ckpt
 from .elbo import VIModel, draw_loss_noise, init_vi, loss_fn
 from .train import check_dp_divisibility, reload_best, unfreeze_expert
@@ -194,12 +201,14 @@ class _Graphed:
     whole-network capture recipe does. The capture follows it at once, so
     that every later call is a replay. The graph reads its inputs from static
     buffers that the caller fills before each call. A capture that fails
-    raises.
+    raises. Both run under `dopri5.full_budget(self.tally)`: the warm-up and
+    every replay add the trial steps of their DOPRI5 solves to `tally`.
     """
 
     def __init__(self, fn, name: str, events: JSONLLogger):
         self.fn, self.name, self.events = fn, name, events
         self.stream = torch.cuda.Stream()  # the warm-up's and the capture's
+        self.tally = torch.zeros(2, dtype=torch.int64, device="cuda")  # [live, run] trial steps
         self.graph = None
         _GRAPHED.add(self)
 
@@ -213,7 +222,8 @@ class _Graphed:
             self.graph.replay()
             return
         self.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self.stream), dopri5.full_budget():
+        with self.events.span("warmup", graph=self.name), torch.cuda.stream(self.stream), \
+                dopri5.full_budget(self.tally):
             self.fn()
         torch.cuda.current_stream().wait_stream(self.stream)
         self._capture()
@@ -223,17 +233,17 @@ class _Graphed:
         # is a CUDA call a capturing stream does not allow): dead graphs go now, and none goes during it.
         gc.collect()
         graph = torch.cuda.CUDAGraph()
-        t, collecting = time.perf_counter(), gc.isenabled()
+        collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream), dopri5.full_budget():
+            with self.events.span("capture", graph=self.name), torch.cuda.graph(graph, stream=self.stream), \
+                    dopri5.full_budget(self.tally):
                 self.fn()
         except Exception as e:
             raise RuntimeError(f"capturing the fused loop's {self.name} into a CUDA graph failed: {e}") from e
         finally:
             if collecting:
                 gc.enable()
-        self.events.log("capture", graph=self.name, seconds=time.perf_counter() - t)
         self.graph = graph
 
 
@@ -285,16 +295,19 @@ class _Run:
     chunk) live on the device. `mean`, under data parallelism, a `_DataMean`:
     `grad_fn` already averages; a validation sums its chunks' terms over the
     data axis in one all-reduce and divides once (the ELBO by the axis size,
-    the forecast's error sum by its mask count).
+    the forecast's error sum by its mask count). `restart`: the span of the loop's call, the parent of every
+    window span, also of windows run after the call returned.
     """
 
     def __init__(self, *, leaves, lr, grad_fn, eval_fn, gather, lanes, val_batches, idx, noise, val_noise,
-                 niters, test_freq, early_stop, best_on_disk, capture, events, to_params, forecast, mean=None):
+                 niters, test_freq, early_stop, best_on_disk, capture, events, to_params, forecast, restart: Span,
+                 mean=None):
         device = leaves[0].device
         self.leaves, self.adam, self.gather = leaves, _Adam(leaves, lr), gather
         self.grad_fn, self.eval_fn = grad_fn, eval_fn
         self.lanes, self.val_batches, self.early_stop = tuple(lanes), val_batches, early_stop
         self.niters, self.test_freq, self.to_params, self.events = niters, test_freq, to_params, events
+        self.restart = restart
         self.forecast, self.mean = forecast, mean
         self.idx, self.noise, self.val_noise = idx, noise, val_noise
         self.itrs = torch.arange(1, niters + 1, device=device)
@@ -328,8 +341,12 @@ class _Run:
         if capture:
             self.step = _Graphed(self._step, "step", events)
             self.validate = _Graphed(self._validate, "validation", events)
+            # The graphs' trial-step tallies, named as a window span's fields, and their values at the last read.
+            self.tallies = {"step": self.step.tally, "val": self.validate.tally}
         else:
             self.step, self.validate = self._step, self._validate
+            self.tallies = {}
+        self.tallied = [0] * (2 * len(self.tallies))
 
     def _mask(self, flag, t):
         return flag.reshape(flag.shape + (1,) * (t.ndim - flag.ndim))
@@ -386,33 +403,40 @@ class _Run:
             if s is not None:
                 s.copy_(n[i])
 
+    def _read(self) -> tuple[bool, dict]:
+        """The window's one read: whether any lane runs on, and each graph's trial steps since the last read
+        (`<graph>_trials_live`, `<graph>_trials_run`), in one copy to the host."""
+        read = torch.cat([self.running.any().reshape(1).to(torch.int64), *self.tallies.values()]).tolist()
+        counts, self.tallied = [a - b for a, b in zip(read[1:], self.tallied)], read[1:]
+        names = [f"{g}_trials_{k}" for g in self.tallies for k in ("live", "run")]
+        return bool(read[0]), dict(zip(names, counts))
+
     def run(self, sink=None):
         """The windows, each ended by its one read, then the trailing steps."""
         n_windows, tf = self.niters // self.test_freq, self.test_freq
         for w in range(n_windows):
-            t = time.perf_counter()
-            for i in range(w * tf, (w + 1) * tf):
-                self._load_step(i)
-                self.step()
-            self.s_w.copy_(self.windows[w])
-            for s, n in zip(self.s_val_noise, self.val_noise):
-                if s is not None:
-                    s.copy_(n[w])
-            self.validate()
-            running = bool(self.running.any())  # the window's one read
-            self.events.log("window", window=w + 1, itr=(w + 1) * tf, seconds=time.perf_counter() - t)
+            with self.events.span("window", self.restart, window=w + 1, itr=(w + 1) * tf) as window:
+                for i in range(w * tf, (w + 1) * tf):
+                    self._load_step(i)
+                    self.step()
+                self.s_w.copy_(self.windows[w])
+                for s, n in zip(self.s_val_noise, self.val_noise):
+                    if s is not None:
+                        s.copy_(n[w])
+                self.validate()
+                running, counts = self._read()
+                window.fields.update(counts)
             if sink is not None:
                 sink(self)
             if not running:
                 return
         if n_windows * tf < self.niters:
-            t = time.perf_counter()
-            for i in range(n_windows * tf, self.niters):
-                self._load_step(i)
-                self.step()
-            with torch.no_grad():
-                self.nf.logical_or_(self.running & ~self.alive)
-            self.events.log("tail", itr=self.niters, seconds=time.perf_counter() - t)
+            with self.events.span("tail", self.restart, itr=self.niters):
+                for i in range(n_windows * tf, self.niters):
+                    self._load_step(i)
+                    self.step()
+                with torch.no_grad():
+                    self.nf.logical_or_(self.running & ~self.alive)
 
     def best_params(self, lane=None):
         return self.to_params(self.best, lane)
@@ -537,58 +561,59 @@ def fused_training_loop(
 
     curve, events = CSVCurveLogger(curve_path if writer else None), JSONLLogger(events_path if writer else None)
     try:
-        rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=generator)))
-        start = time.time()
-        idx = _predraw_train_idx(rng, fold_n, train_chunk, niters, batch_size, shuffle)
-        val_idx = _predraw_val_idx(val_n, batch_size, val_chunks)
-        noise, val_noise, after_train, after_all = _predraw_noise(
-            model, generator, niters, test_freq, idx.shape[-1], val_chunks, val_idx.shape[-1], val_criterion)
-        mean = None
-        if mesh is not None:
-            idx, val_idx, noise, val_noise = _data_block(mesh, idx, val_idx, noise, val_noise)
-            mean = _DataMean(mesh)
+        with events.span("restart", None) as restart:
+            rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=generator)))
+            start = time.time()
+            idx = _predraw_train_idx(rng, fold_n, train_chunk, niters, batch_size, shuffle)
+            val_idx = _predraw_val_idx(val_n, batch_size, val_chunks)
+            noise, val_noise, after_train, after_all = _predraw_noise(
+                model, generator, niters, test_freq, idx.shape[-1], val_chunks, val_idx.shape[-1], val_criterion)
+            mean = None
+            if mesh is not None:
+                idx, val_idx, noise, val_noise = _data_block(mesh, idx, val_idx, noise, val_noise)
+                mean = _DataMean(mesh)
 
-        def grad_fn(batch, eps, eps_kl):
-            loss = loss_fn(params, model, batch, eps=eps, eps_kl=eps_kl)
-            out = loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
-            return out if mean is None else mean.step(*out)
+            def grad_fn(batch, eps, eps_kl):
+                loss = loss_fn(params, model, batch, eps=eps, eps_kl=eps_kl)
+                out = loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+                return out if mean is None else mean.step(*out)
 
-        def eval_fn(vbatch, eps, eps_kl):
-            if val_criterion == "forecast":
-                return forecast_terms(params, model, vbatch, val_t0, mesh)
-            return loss_fn(params, model, vbatch, eps=eps, eps_kl=eps_kl).reshape(1)
+            def eval_fn(vbatch, eps, eps_kl):
+                if val_criterion == "forecast":
+                    return forecast_terms(params, model, vbatch, val_t0, mesh)
+                return loss_fn(params, model, vbatch, eps=eps, eps_kl=eps_kl).reshape(1)
 
-        def to_params(best, lane=None):
-            out = copy.deepcopy(params)
-            with torch.no_grad():
-                for p, b in zip([p for p in out.parameters() if p.requires_grad], best):
-                    p.copy_(b)
-            return out
+            def to_params(best, lane=None):
+                out = copy.deepcopy(params)
+                with torch.no_grad():
+                    for p, b in zip([p for p in out.parameters() if p.requires_grad], best):
+                        p.copy_(b)
+                return out
 
-        def to_device(n):
-            return None if n is None else n.to(device)
+            def to_device(n):
+                return None if n is None else n.to(device)
 
-        run = _Run(leaves=leaves, lr=lr, grad_fn=grad_fn, eval_fn=eval_fn,
-                   gather=lambda i: {k: v.index_select(1, i) for k, v in fold.items()}, lanes=(),
-                   val_batches=_val_batches(data_generator, val_idx, device),
-                   idx=torch.as_tensor(idx, device=device), noise=tuple(map(to_device, noise)),
-                   val_noise=tuple(map(to_device, val_noise)), niters=niters, test_freq=test_freq,
-                   early_stop=early_stop, best_on_disk=best_on_disk, capture=capture, events=events,
-                   to_params=to_params, forecast=val_criterion == "forecast", mean=mean)
-        every = _flush_every(flush_every)
-        sink = _FlushSink(path, model.model_name, every, best_on_disk) if every > 0 and writer else None
-        _LAST_FLUSH_SINK, _LAST_RUN = sink, run
-        run.run(sink)
-        out = run.host()
-        wall = time.time() - start
-        _restore_generator(generator, after_train, after_all, int(out["last_itr"]), bool(out["nf"]))
+            run = _Run(leaves=leaves, lr=lr, grad_fn=grad_fn, eval_fn=eval_fn,
+                       gather=lambda i: {k: v.index_select(1, i) for k, v in fold.items()}, lanes=(),
+                       val_batches=_val_batches(data_generator, val_idx, device),
+                       idx=torch.as_tensor(idx, device=device), noise=tuple(map(to_device, noise)),
+                       val_noise=tuple(map(to_device, val_noise)), niters=niters, test_freq=test_freq,
+                       early_stop=early_stop, best_on_disk=best_on_disk, capture=capture, events=events,
+                       to_params=to_params, forecast=val_criterion == "forecast", restart=restart, mean=mean)
+            every = _flush_every(flush_every)
+            sink = _FlushSink(path, model.model_name, every, best_on_disk) if every > 0 and writer else None
+            _LAST_FLUSH_SINK, _LAST_RUN = sink, run
+            run.run(sink)
+            out = run.host()
+            wall = time.time() - start
+            _restore_generator(generator, after_train, after_all, int(out["last_itr"]), bool(out["nf"]))
 
-        _replay_logs(out, curve, events, verbose)
-        if bool(out["improved"]):
-            best_on_disk = float(out["best_od"])
-            if writer:
-                ckpt.save_checkpoint(path, model.model_name, run.best_params(), int(out["best_itr"]), best_on_disk)
-        events.log("done", wall=wall, best_on_disk=float(best_on_disk), captured=capture)
+            _replay_logs(out, curve, events, verbose)
+            if bool(out["improved"]):
+                best_on_disk = float(out["best_od"])
+                if writer:
+                    ckpt.save_checkpoint(path, model.model_name, run.best_params(), int(out["best_itr"]), best_on_disk)
+            events.log("done", wall=wall, best_on_disk=float(best_on_disk), captured=capture)
     finally:
         curve.close()
         events.close()
@@ -668,139 +693,146 @@ def _experiment_loop(niters, data_generator, model, restart_generators, batch_si
     per = n_restart // n_r
     local = range(i_r * per, (i_r + 1) * per)  # this rank's lanes
     writer = is_writer()
-    verbose = verbose and writer
-    capture = captures(model, device)
-    fold, fold_n, train_chunk, val_chunks, val_n = _fold_geometry(data_generator, batch_size, train_fold)
-
-    start = time.time()
-    modules, idx, draws = [], [], []
-    for r in local:
-        gen_init, gen_train = restart_generators[r]
-        modules.append(init_vi(gen_init, model, device=device) if init_params is None
-                       else copy.deepcopy(init_params[r]).to(device))
-        if train_expert:
-            unfreeze_expert(modules[-1])
-        rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=gen_train)))
-        idx.append(_predraw_train_idx(rng, fold_n, train_chunk, niters, batch_size, shuffle))
-    val_idx = _predraw_val_idx(val_n, batch_size, val_chunks)
-    for r, lane_idx in zip(local, idx):
-        draws.append(_predraw_noise(model, restart_generators[r][1], niters, test_freq, lane_idx.shape[-1],
-                                    val_chunks, val_idx.shape[-1], val_criterion))
-
-    stacked, _ = torch.func.stack_module_state(modules)
-    train = {n: t for n, t in stacked.items() if t.requires_grad}
-    frozen = {n: t for n, t in stacked.items() if not t.requires_grad}
-    leaves = list(train.values())
-    base = copy.deepcopy(modules[0]).to("meta")
-
-    def call(fn):
-        wrapper = _Functional(base, fn)
-
-        def lane(train_p, frozen_p, *args):
-            named = {"tree." + n: t for n, t in {**train_p, **frozen_p}.items()}
-            return torch.func.functional_call(wrapper, named, args)
-
-        return lane
-
-    lane_loss = call(lambda tree, batch, eps, eps_kl: loss_fn(tree, model, batch, eps=eps, eps_kl=eps_kl))
-    lane_grad = torch.func.grad_and_value(lane_loss)
-    # The adjoint solver reads the host inside a solve (its lanes run outside the vmap, `solvers/adjoint.py`), so
-    # its lanes run no whole budget, and their gradient is taken outside the vmap: the lanes are independent, so
-    # the gradient of their summed losses is each lane's own.
-    adjoint = getattr(model.decoder_spec, "use_adjoint", False)
-    budget = contextlib.nullcontext if adjoint else dopri5.full_budget
-    data_mesh = mesh if dp > 1 else None
-    if val_criterion == "forecast":
-        lane_eval = call(lambda tree, vbatch, eps, eps_kl: forecast_terms(tree, model, vbatch, val_t0, data_mesh))
-    else:
-        lane_eval = call(lambda tree, vbatch, eps, eps_kl: loss_fn(tree, model, vbatch, eps=eps,
-                                                                   eps_kl=eps_kl).reshape(1))
-
-    def noise_dims(*noise):
-        return tuple(None if n is None else 0 for n in noise)
-
-    # Collectives are not batched by vmap: the lanes' gradients leave it stacked and are averaged after it.
-    mean = _DataMean(mesh) if dp > 1 else None
-
-    def grad_fn(batch, eps, eps_kl):
-        in_dims = (0, 0, 0) + noise_dims(eps, eps_kl)
-        if adjoint:
-            loss = torch.func.vmap(lane_loss, in_dims=in_dims)(train, frozen, batch, eps, eps_kl)
-            out = loss.detach(), list(torch.autograd.grad(loss.sum(), leaves, allow_unused=True))
-        else:
-            with dopri5.full_budget():  # a vmapped solve cannot read `finished` on the host
-                grads, loss = torch.func.vmap(lane_grad, in_dims=in_dims)(train, frozen, batch, eps, eps_kl)
-            out = loss.detach(), [grads[n] for n in train]
-        return out if mean is None else mean.step(*out)
-
-    def eval_fn(vbatch, eps, eps_kl):
-        with budget():
-            return torch.func.vmap(lane_eval, in_dims=(0, 0, None) + noise_dims(eps, eps_kl))(
-                train, frozen, vbatch, eps, eps_kl)
-
-    def gather(i):
-        flat = i.reshape(-1)
-        return {k: v.index_select(1, flat).unflatten(1, tuple(i.shape)).movedim(1, 0) for k, v in fold.items()}
-
-    def to_params(best, lane):
-        out = copy.deepcopy(modules[lane])
-        values = dict(zip(train, best)) | frozen
-        with torch.no_grad():
-            for n, p in out.named_parameters():
-                p.copy_(values[n][lane])
-        return out
-
-    lane_idx = np.stack(idx, axis=1)
-    noise = tuple(None if parts[0] is None else torch.stack(parts, dim=1) for parts in zip(*(d[0] for d in draws)))
-    val_noise = tuple(None if parts[0] is None else torch.stack(parts, dim=2) for parts in zip(*(d[1] for d in draws)))
-    if mean is not None:
-        lane_idx, val_idx, noise, val_noise = _data_block(mesh, lane_idx, val_idx, noise, val_noise)
     events = JSONLLogger(events_path if writer else None)
-    run = _Run(leaves=leaves, lr=lr, grad_fn=grad_fn, eval_fn=eval_fn, gather=gather,
-               lanes=(per,), val_batches=_val_batches(data_generator, val_idx, device),
-               idx=torch.as_tensor(lane_idx, device=device),
-               noise=tuple(None if n is None else n.to(device) for n in noise),
-               val_noise=tuple(None if n is None else n.to(device) for n in val_noise),
-               niters=niters, test_freq=test_freq, early_stop=early_stop, best_on_disk=1e9, capture=capture,
-               events=events, to_params=to_params, forecast=val_criterion == "forecast", mean=mean)
-    _LAST_RUN = run
-    run.run()
-    packed = run.packed()
-    if n_r > 1:
-        wait_idle("lanes", mesh.mesh.flatten().tolist())
-    out = _unpack(all_gather_rows(packed, r_group, n_r).cpu())  # every lane's buffers, in lane order
-    wall = time.time() - start
-    for j, r in enumerate(local):
-        _restore_generator(restart_generators[r][1], draws[j][2], draws[j][3], int(out["last_itr"][r]),
-                           bool(out["nf"][r]))
+    try:
+        with events.span("restart", None) as restart:
+            verbose = verbose and writer
+            capture = captures(model, device)
+            fold, fold_n, train_chunk, val_chunks, val_n = _fold_geometry(data_generator, batch_size, train_fold)
 
-    lane_out = [{k: v[r] for k, v in out.items()} for r in range(n_restart)]
-    for r in range(n_restart):
-        _replay_logs(lane_out[r], None, events, verbose, restart=r)
-    curve = CSVCurveLogger(curve_path if writer else None)
-    _replay_logs(lane_out[-1], curve, JSONLLogger(None), False)
-    curve.close()
+            start = time.time()
+            modules, idx, draws = [], [], []
+            for r in local:
+                gen_init, gen_train = restart_generators[r]
+                modules.append(init_vi(gen_init, model, device=device) if init_params is None
+                               else copy.deepcopy(init_params[r]).to(device))
+                if train_expert:
+                    unfreeze_expert(modules[-1])
+                rng = np.random.RandomState(int(torch.randint(0, 2**31 - 1, (), generator=gen_train)))
+                idx.append(_predraw_train_idx(rng, fold_n, train_chunk, niters, batch_size, shuffle))
+            val_idx = _predraw_val_idx(val_n, batch_size, val_chunks)
+            for r, lane_idx in zip(local, idx):
+                draws.append(_predraw_noise(model, restart_generators[r][1], niters, test_freq, lane_idx.shape[-1],
+                                            val_chunks, val_idx.shape[-1], val_criterion))
 
-    best_per = out["best_od"]
-    r_star = int(np.argmin(best_per))
-    if not bool(out["improved"][0]):
-        # Lane 0 never validated finitely: the sequential chain's end-of-restart load would have surfaced a
-        # checkpoint already at `path` and threaded its loss as the later restarts' threshold.
-        try:
-            best_on_disk = min(best_on_disk, float(ckpt.load_checkpoint(path, model.model_name, device)[2]))
-        except FileNotFoundError:
-            pass
-    if bool(out["improved"][r_star]) and float(best_per[r_star]) < best_on_disk:
-        best_on_disk = float(best_per[r_star])
-        owner, lane = divmod(r_star, per)
-        winner = run.best_params(lane if owner == i_r else 0)
-        if n_r > 1:  # from the winner's rank of this rank's column of the mesh
-            replicate(winner, r_group, owner)
-        barrier(mesh)  # every rank has read what was on disk before rank 0 writes
-        if writer:
-            ckpt.save_checkpoint(path, model.model_name, winner, int(out["best_itr"][r_star]), best_on_disk)
-    events.log("done", wall=wall, best_on_disk=float(best_on_disk), captured=capture, restarts=n_restart)
-    events.close()
+            stacked, _ = torch.func.stack_module_state(modules)
+            train = {n: t for n, t in stacked.items() if t.requires_grad}
+            frozen = {n: t for n, t in stacked.items() if not t.requires_grad}
+            leaves = list(train.values())
+            base = copy.deepcopy(modules[0]).to("meta")
+
+            def call(fn):
+                wrapper = _Functional(base, fn)
+
+                def lane(train_p, frozen_p, *args):
+                    named = {"tree." + n: t for n, t in {**train_p, **frozen_p}.items()}
+                    return torch.func.functional_call(wrapper, named, args)
+
+                return lane
+
+            lane_loss = call(lambda tree, batch, eps, eps_kl: loss_fn(tree, model, batch, eps=eps, eps_kl=eps_kl))
+            lane_grad = torch.func.grad_and_value(lane_loss)
+            # The adjoint solver reads the host inside a solve (its lanes run outside the vmap,
+            # `solvers/adjoint.py`), so its lanes run no whole budget, and their gradient is taken outside the vmap:
+            # the lanes are independent, so the gradient of their summed losses is each lane's own.
+            adjoint = getattr(model.decoder_spec, "use_adjoint", False)
+            budget = contextlib.nullcontext if adjoint else dopri5.full_budget
+            data_mesh = mesh if dp > 1 else None
+            if val_criterion == "forecast":
+                lane_eval = call(lambda tree, vbatch, eps, eps_kl: forecast_terms(tree, model, vbatch, val_t0,
+                                                                                  data_mesh))
+            else:
+                lane_eval = call(lambda tree, vbatch, eps, eps_kl: loss_fn(tree, model, vbatch, eps=eps,
+                                                                           eps_kl=eps_kl).reshape(1))
+
+            def noise_dims(*noise):
+                return tuple(None if n is None else 0 for n in noise)
+
+            # Collectives are not batched by vmap: the lanes' gradients leave it stacked and are averaged after it.
+            mean = _DataMean(mesh) if dp > 1 else None
+
+            def grad_fn(batch, eps, eps_kl):
+                in_dims = (0, 0, 0) + noise_dims(eps, eps_kl)
+                if adjoint:
+                    loss = torch.func.vmap(lane_loss, in_dims=in_dims)(train, frozen, batch, eps, eps_kl)
+                    out = loss.detach(), list(torch.autograd.grad(loss.sum(), leaves, allow_unused=True))
+                else:
+                    with dopri5.full_budget():  # a vmapped solve cannot read `finished` on the host
+                        grads, loss = torch.func.vmap(lane_grad, in_dims=in_dims)(train, frozen, batch, eps, eps_kl)
+                    out = loss.detach(), [grads[n] for n in train]
+                return out if mean is None else mean.step(*out)
+
+            def eval_fn(vbatch, eps, eps_kl):
+                with budget():
+                    return torch.func.vmap(lane_eval, in_dims=(0, 0, None) + noise_dims(eps, eps_kl))(
+                        train, frozen, vbatch, eps, eps_kl)
+
+            def gather(i):
+                flat = i.reshape(-1)
+                return {k: v.index_select(1, flat).unflatten(1, tuple(i.shape)).movedim(1, 0) for k, v in fold.items()}
+
+            def to_params(best, lane):
+                out = copy.deepcopy(modules[lane])
+                values = dict(zip(train, best)) | frozen
+                with torch.no_grad():
+                    for n, p in out.named_parameters():
+                        p.copy_(values[n][lane])
+                return out
+
+            lane_idx = np.stack(idx, axis=1)
+            noise = tuple(None if parts[0] is None else torch.stack(parts, dim=1)
+                          for parts in zip(*(d[0] for d in draws)))
+            val_noise = tuple(None if parts[0] is None else torch.stack(parts, dim=2)
+                              for parts in zip(*(d[1] for d in draws)))
+            if mean is not None:
+                lane_idx, val_idx, noise, val_noise = _data_block(mesh, lane_idx, val_idx, noise, val_noise)
+            run = _Run(leaves=leaves, lr=lr, grad_fn=grad_fn, eval_fn=eval_fn, gather=gather,
+                       lanes=(per,), val_batches=_val_batches(data_generator, val_idx, device),
+                       idx=torch.as_tensor(lane_idx, device=device),
+                       noise=tuple(None if n is None else n.to(device) for n in noise),
+                       val_noise=tuple(None if n is None else n.to(device) for n in val_noise),
+                       niters=niters, test_freq=test_freq, early_stop=early_stop, best_on_disk=1e9, capture=capture,
+                       events=events, to_params=to_params, forecast=val_criterion == "forecast", restart=restart,
+                       mean=mean)
+            _LAST_RUN = run
+            run.run()
+            packed = run.packed()
+            if n_r > 1:
+                wait_idle("lanes", mesh.mesh.flatten().tolist())
+            out = _unpack(all_gather_rows(packed, r_group, n_r).cpu())  # every lane's buffers, in lane order
+            wall = time.time() - start
+            for j, r in enumerate(local):
+                _restore_generator(restart_generators[r][1], draws[j][2], draws[j][3], int(out["last_itr"][r]),
+                                   bool(out["nf"][r]))
+
+            lane_out = [{k: v[r] for k, v in out.items()} for r in range(n_restart)]
+            for r in range(n_restart):
+                _replay_logs(lane_out[r], None, events, verbose, restart=r)
+            curve = CSVCurveLogger(curve_path if writer else None)
+            _replay_logs(lane_out[-1], curve, JSONLLogger(None), False)
+            curve.close()
+
+            best_per = out["best_od"]
+            r_star = int(np.argmin(best_per))
+            if not bool(out["improved"][0]):
+                # Lane 0 never validated finitely: the sequential chain's end-of-restart load would have surfaced a
+                # checkpoint already at `path` and threaded its loss as the later restarts' threshold.
+                try:
+                    best_on_disk = min(best_on_disk, float(ckpt.load_checkpoint(path, model.model_name, device)[2]))
+                except FileNotFoundError:
+                    pass
+            if bool(out["improved"][r_star]) and float(best_per[r_star]) < best_on_disk:
+                best_on_disk = float(best_per[r_star])
+                owner, lane = divmod(r_star, per)
+                winner = run.best_params(lane if owner == i_r else 0)
+                if n_r > 1:  # from the winner's rank of this rank's column of the mesh
+                    replicate(winner, r_group, owner)
+                barrier(mesh)  # every rank has read what was on disk before rank 0 writes
+                if writer:
+                    ckpt.save_checkpoint(path, model.model_name, winner, int(out["best_itr"][r_star]), best_on_disk)
+            events.log("done", wall=wall, best_on_disk=float(best_on_disk), captured=capture, restarts=n_restart)
+    finally:
+        events.close()
 
     # No restart ever validated finitely: the sequential loop would have saved restart 0's final state.
     best_params, best_on_disk = reload_best(path, model.model_name, to_params(leaves, 0), best_on_disk, device,

@@ -208,13 +208,13 @@ def variational_training_loop(
         start = time.time()
 
         for itr in range(1, niters + 1):
-            t_step = time.perf_counter()
-            if shuffle:
-                batch = data_generator.get_mini_batch(train_fold, batch_size, rng)
-            else:
-                batch = data_generator.get_split(train_fold, batch_size, itr % train_chunk)
-            loss = float(step(batch))
-            events.log("step", itr=itr, seconds=time.perf_counter() - t_step, train_loss=loss)
+            with events.span("step", itr=itr) as step_span:
+                if shuffle:
+                    batch = data_generator.get_mini_batch(train_fold, batch_size, rng)
+                else:
+                    batch = data_generator.get_split(train_fold, batch_size, itr % train_chunk)
+                loss = float(step(batch))
+                step_span.fields["train_loss"] = loss
 
             if not np.isfinite(loss):
                 if verbose:

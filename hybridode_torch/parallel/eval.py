@@ -15,6 +15,7 @@ eval.py:34-48), so the sharded result uses `evaluate`'s very draws. CRPS
 ranks the whole sample set, so the MC decodes are exchanged with one
 all-gather over the ``mc`` group before it; the per-patient terms are then
 the same on every ``mc`` rank and are gathered over the ``data`` group.
+A call is a root span with `evaluate`'s children (`eval/metrics.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from ..eval.metrics import _point_scores, _point_terms, _seeded, _test_chunks, draw_chunk_noise
 from ..inference.elbo import VIModel, decode, encode
 from ..models import encoders, priors
+from ..utils.logging import root_span, span
 from .mesh import all_gather_rows, axis, block
 
 
@@ -54,7 +56,8 @@ def make_sharded_eval_chunk(model: VIModel, mesh, t0: int, mc_itr: int, expert_d
     def chunk(params, batch, eps, eps_point=None):
         local = {k: block(v, 1, i_data, n_data) for k, v in batch.items()}
         eps_loc = block(block(eps, 1, i_data, n_data), 0, i_mc, n_mc)  # (MC_loc, B_loc, D)
-        enc = encode(params, model, local["measurements"][:t0], local["actions"][:t0], local["masks"][:t0])
+        with span("encode"):
+            enc = encode(params, model, local["measurements"][:t0], local["actions"][:t0], local["masks"][:t0])
         if model.kind == "flow":
             K = model.encoder_spec.num_flows
             z0_hat = encoders.planar_reparameterize(enc, K, block(eps_point, 0, i_data, n_data))[2]
@@ -64,7 +67,8 @@ def make_sharded_eval_chunk(model: VIModel, mesh, t0: int, mc_itr: int, expert_d
             z0_hat, z_mc = mu, priors.gaussian_reparameterize(mu, log_var, eps_loc)
         mc, B, D = eps_loc.shape
         z_all = torch.cat([z0_hat[None], z_mc]).reshape((mc + 1) * B, D)  # the point, then the local draws
-        x_all, _ = decode(params, model, z_all, {"actions": local["actions"].repeat(1, mc + 1, 1)})
+        with span("decode"):
+            x_all, _ = decode(params, model, z_all, {"actions": local["actions"].repeat(1, mc + 1, 1)})
         x_all = x_all.reshape(x_all.shape[0], mc + 1, B, -1)
         x_hat, x_mc = x_all[:, 0], x_all[:, 1:].transpose(0, 1)  # (T, B, obs), (MC_loc, T, B, obs)
         z_mc = all_gather_rows(z_mc, mc_group, n_mc)  # (MC, B_loc, D): every mc rank holds all samples
@@ -75,6 +79,7 @@ def make_sharded_eval_chunk(model: VIModel, mesh, t0: int, mc_itr: int, expert_d
     return chunk
 
 
+@root_span
 def evaluate_sharded(params, model: VIModel, data_generator, batch_size: int, t0: int, mesh, mc_itr: int = 50,
                      generator: Optional[torch.Generator] = None, verbose: bool = True, device=None):
     """Mesh-parallel twin of `eval.metrics.evaluate`: its chunks, its draws from `generator` (seed 0 when None)

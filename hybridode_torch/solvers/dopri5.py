@@ -71,22 +71,28 @@ _MAX_FACTOR = 10.0
 _ERROR_EXPONENT = -1.0 / 5.0
 _CHUNK_SIZE = 64  # trial steps between two host checks of `finished`
 _FULL_BUDGET = False  # set by `full_budget()`
+_TALLY = None  # the int64 device tensor [live, run] that `full_budget(tally)` adds trial steps to
 
 
 @contextlib.contextmanager
-def full_budget():
+def full_budget(tally: Optional[torch.Tensor] = None):
     """Within it, every DOPRI5 solve runs its whole trial budget without reading `finished` on the host.
 
     The result is the early-exit one, bit for bit (finished rows are frozen
     by the masks); a CUDA graph capture and `torch.func.vmap` need it, since
-    neither allows the read.
+    neither allows the read. With an int64 `tally` of shape (2,) on the
+    solves' device, each solve adds to it, on the device (a capture records
+    the adds), its live trial steps (those a row took while neither finished
+    nor out of budget) and the trial steps it ran (rows x the steps of its
+    chunks). Nothing is counted under a `torch.func` transform, nor in a
+    nested `full_budget()` without a tally.
     """
-    global _FULL_BUDGET
-    previous, _FULL_BUDGET = _FULL_BUDGET, True
+    global _FULL_BUDGET, _TALLY
+    previous, (_FULL_BUDGET, _TALLY) = (_FULL_BUDGET, _TALLY), (True, tally)
     try:
         yield
     finally:
-        _FULL_BUDGET = previous
+        _FULL_BUDGET, _TALLY = previous
 
 
 class Dopri5Stats(NamedTuple):
@@ -298,7 +304,8 @@ def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_
     A row is done when it has finished or spent its `budget`. Done rows are
     frozen by the masks, so stopping at a chunk boundary gives what the full
     ceil(max_steps / 64) * 64 steps give. Inside `full_budget()` all of them
-    run and nothing is read on the host. `on_step` gets each step's record.
+    run, nothing is read on the host, and its tally, if any, counts them.
+    `on_step` gets each step's record.
     With `checkpoint_steps` (and grad mode on) each chunk runs under
     `torch.utils.checkpoint`, non-reentrant: its backward recomputes it.
     """
@@ -311,12 +318,16 @@ def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_
         return carry
 
     checkpointed = checkpoint_steps and torch.is_grad_enabled()
-    for _ in range(max(1, -(-max_steps // _CHUNK_SIZE))):
+    n_trial, chunks = carry[5], max(1, -(-max_steps // _CHUNK_SIZE))
+    for _ in range(chunks):
         done = carry[-1] if budget is None else carry[-1] | (carry[5] >= budget)
         if not _FULL_BUDGET and bool(done.all()):  # the one host sync of a chunk
             break
         carry = (torch.utils.checkpoint.checkpoint(chunk, *carry, use_reentrant=False) if checkpointed
                  else chunk(*carry))
+    if _TALLY is not None and torch._C._functorch.maybe_current_level() is None:
+        _TALLY[0].add_((carry[5] - n_trial).sum())
+        _TALLY[1].add_(n_trial.numel() * chunks * _CHUNK_SIZE)
     return carry
 
 

@@ -1,6 +1,5 @@
-"""Host-side helpers: structured logging, phase timers, a profiler trace, the cohort pickles."""
+"""Host-side helpers: the tracer and its JSONL exporter, the training-curve CSV, the cohort pickles."""
 
 from .logging import CSVCurveLogger, JSONLLogger
-from .profiling import PhaseTimer, trace_to
 
-__all__ = ["JSONLLogger", "CSVCurveLogger", "PhaseTimer", "trace_to"]
+__all__ = ["JSONLLogger", "CSVCurveLogger"]

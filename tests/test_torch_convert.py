@@ -88,7 +88,7 @@ def test_port_imports_no_jax_and_nothing_of_hybridode():
         mods = [m.name for m in pkgutil.walk_packages(hybridode_torch.__path__, "hybridode_torch.")]
         for name in mods:
             importlib.import_module(name)
-        for name in ("solvers.adjoint", "solvers.calibrate", "utils.profiling", "data.synthetic", "cli.create_data",
+        for name in ("solvers.adjoint", "solvers.calibrate", "utils.logging", "data.synthetic", "cli.create_data",
                      "parallel.mesh", "parallel.eval", "parallel.dryrun", "parallel.launch", "native", "data.etl"):
             assert "hybridode_torch." + name in mods, name
         from hybridode_torch.data import SyntheticCohort

@@ -27,6 +27,7 @@ from hybridode_torch.config import DataConfig
 from hybridode_torch.data import RealCohort, SyntheticCohort
 from hybridode_torch.inference import fused, init_vi, variational_training_loop
 from hybridode_torch.ops import roche_rk4
+from hybridode_torch.solvers import dopri5
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 COHORT = os.path.join(ROOT, "data_s123", "datafile_dose_exp.pkl")
@@ -94,6 +95,36 @@ def test_captured_step_matches_the_uncaptured_fused_loop(cuda_device, tmp_path, 
     np.testing.assert_allclose(got[1], want[1], rtol=CURVE_RTOL)
     _close(p_got, p_want)  # the final parameters
     _close(got[0], want[0])  # the best, reloaded
+
+
+@pytest.mark.cuda
+def test_window_spans_count_the_trial_steps_of_the_step_graph(cuda_device, tmp_path, monkeypatch):
+    """Two windows of the sim step graph at lr 0 (every step at the same parameters): each window span's
+    `step_trials_live` is an eager recount of its batches (the same loop uncaptured, each step's solves counted
+    under `full_budget` with a tally of their own), `step_trials_run` its replays x 8 rows x the budget of 256, and
+    the step and the validation graphs each have a `warmup` span."""
+    model = build_sim_model("hybrid", DataConfig(), mc_size=10)
+    kw = dict(niters=4, test_freq=2, lr=0.0)
+    _, _, _, recs = _train(tmp_path, "graph", model, _sim(), 8, **kw)
+    windows = [r for r in recs if r["event"] == "window"]
+    assert sorted(r["graph"] for r in recs if r["event"] == "warmup") == ["step", "validation"]
+
+    counts, step = [], fused._Run._step
+
+    def counted(run):
+        tally = torch.zeros(2, dtype=torch.int64, device="cuda")
+        with dopri5.full_budget(tally):
+            step(run)
+        counts.append(tally.tolist())
+
+    monkeypatch.setattr(fused._Run, "_step", counted)
+    _train(tmp_path, "eager", model, _sim(), 8, monkeypatch, capture=False, **kw)
+    assert len(windows) == 2 and len(counts) == 4
+    for w, r in enumerate(windows):
+        live, run = (sum(c[k] for c in counts[2 * w:2 * w + 2]) for k in (0, 1))
+        assert (r["step_trials_live"], r["step_trials_run"]) == (live, run) == (live, 2 * 8 * 256)
+        assert 0 < r["step_trials_live"] < r["step_trials_run"]
+        assert r["val_trials_run"] == 2 * 8 * 256 and 0 < r["val_trials_live"] < r["val_trials_run"]
 
 
 @pytest.mark.cuda
