@@ -17,6 +17,14 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    device time with the host's launch cost hidden (`device_ms`: 100 calls
    queued behind a GPU spin), and the built kernel's registers and local
    (spill) bytes a thread.
+3b. DOPRI5 kernel: the per-row DOPRI5 kernel against the plain per-row
+   solver on the card (`DOPRI5_CASES`: evaluate's shape, the validation's
+   chunk of 50, D=4 and 8, Hill 1.7, rows without a dose, a budget of 64,
+   and a field both compute exactly, on which the two must agree bit for
+   bit), each against the same solve in float64; its times as phase 3's;
+   its registers and spills; one forecast request (`evaluate` of 50 patients, mc 50) through the kernel
+   (one launch) and through the plain solver, and their scores.
+   `python3 chip_smoke.py --phase kernels` runs phases 1-3b alone.
 4. Slice: `evaluate` of the hybrid model (full width of the cohort's model:
    obs 20, LSTM hidden 40, latent 6, ml remainder 2) on the whole test fold of
    data_s123, decoding with the RK4 kernel (one launch per chunk of 50
@@ -32,8 +40,10 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    both, the GPU `evaluate` seconds, the steps of the first training batch's
    per-patient decode, the largest relative differences between the two
    curves and between the four metrics (each must stay within TRAIN_RTOL).
-   No kernel of the port is on this path (the RK4 kernel is forward-only):
-   its launches there must stay 0. One training iteration is timed here and
+   The RK4 kernel is not on this path: its launches there must stay 0 (the
+   validations and the `evaluate` decode through the per-row DOPRI5 kernel,
+   the training steps through the plain solver). One training iteration is
+   timed here and
    profiled at the end (`profile` line). The `checkpoint_steps` probe: the
    first training batch's per-patient DOPRI5 decode (batch 50, 256 trial
    steps) with its gradient, without and with `checkpoint_steps` (each chunk
@@ -246,6 +256,21 @@ DRYRUN_LINES = ("dryrun 2D mesh (2x2 data x mc) eval parity OK", "dryrun real-tr
 FUSED_BEST_RTOL = 1e-5
 KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None), (1000, 8, None), (7, 6, None),
                 (2550, 6, 1.7)]
+# Phase 3b, the per-row DOPRI5 kernel: (B, D, Hill exponent or None, max_steps, every how many rows no dose or 0,
+# exact). The first is evaluate's shape, the second the fused loop's validation chunk; max_steps 64 spends the budget.
+# `exact`: every rate 0 but kel 1 and W 0, a field both solvers compute exactly, so that the kernel's steps and
+# outputs must be the plain solver's bit for bit.
+DOPRI5_CASES = [(2550, 6, None, 256, 0, False), (50, 6, None, 256, 0, False), (2550, 4, None, 256, 0, False),
+                (2550, 8, None, 256, 0, False), (2550, 6, 1.7, 256, 0, False), (2550, 6, None, 256, 5, False),
+                (2550, 6, None, 64, 0, False), (2550, 6, None, 256, 0, True), (2550, 6, None, 64, 0, True)]
+DOPRI5_TOL = (1e-7, 1e-8)  # the CLI's rtol, atol
+# Kernel and plain solver against the same solve in float64 (rtol 1e-10): at rtol 1e-7 the float32 error estimate
+# is rounding noise, so on the real field the two float32 solvers take other steps on most rows, each within its own
+# accuracy. The error is relative to the row's largest magnitude of each state; the kernel's, averaged over the rows'
+# largest, may be at most DOPRI5_ACCURACY times the plain solver's, and its largest DOPRI5_MAX_ACCURACY times the plain
+# solver's largest (a maximum over 2,550 rows of two solvers' step sequences), each plus DOPRI5_ATOL.
+DOPRI5_ACCURACY, DOPRI5_MAX_ACCURACY, DOPRI5_ATOL = 1.25, 4.0, 1e-6
+DOPRI5_SCORES_RTOL = 1e-6  # a forecast request's six scores, kernel against plain solver
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -345,6 +370,135 @@ def phase_kernels(cohort, seed):
                              f"(max abs err {row['max_abs_err']}, rtol={RTOL} atol={ATOL})")
         rows.append(row)
     return rows
+
+
+def phase_dopri5(cohort, seed):
+    """Phase 3b: the per-row DOPRI5 kernel against the plain per-row solver on the card (`DOPRI5_CASES`), its
+    times, and one request of the forecast (`evaluate` of 50 patients, mc 50) through the kernel and through the
+    plain solver."""
+    import numpy as np
+    import torch
+
+    from hybridode_torch.cli.common import build_sim_model
+    from hybridode_torch.config import DataConfig
+    from hybridode_torch.eval import evaluate
+    from hybridode_torch.fields import NO_DOSE_TIME
+    from hybridode_torch.inference import init_vi
+    from hybridode_torch.models import decoders
+    from hybridode_torch.ops import roche_dopri5
+
+    gen = torch.Generator().manual_seed(seed)
+    rows, faults = [], []
+    for B, D, hill, max_steps, no_dose, exact_field in DOPRI5_CASES:
+        inp = kernel_inputs(B, D, cohort, gen, hill)
+        del inp["n_substeps"]
+        if no_dose:
+            inp["times"][::no_dose] = NO_DOSE_TIME
+        if exact_field:
+            for name, value in inp["expert_params"].items():
+                value.fill_(value.item() if name in ("HillCure", "HillPatho", "ec50_patho", "kel") else 0.0)
+            if inp["ml_w"] is not None:
+                inp["ml_w"].zero_()
+        solve = dict(rtol=DOPRI5_TOL[0], atol=DOPRI5_TOL[1], max_steps=max_steps)
+        with torch.no_grad():
+            got, got_st = roche_dopri5.roche_dopri5_per_row(**inp, **solve)
+            want, want_st = roche_dopri5.roche_dopri5_per_row_reference(**inp, **solve)
+            exact = dopri5_exact(inp)
+            torch.cuda.synchronize()
+            (err, err_mean), (err_plain, err_mean_plain) = (dopri5_error(ys, exact) for ys in (got, want))
+            same_steps = (got_st.n_steps == want_st.n_steps) & (got_st.n_accepted == want_st.n_accepted)
+            same_nan = torch.isnan(got) == torch.isnan(want)
+            reached = torch.isfinite(got).all(dim=-1)
+            ok = (err_mean <= DOPRI5_ACCURACY * err_mean_plain + DOPRI5_ATOL
+                  and err <= DOPRI5_MAX_ACCURACY * err_plain + DOPRI5_ATOL
+                  and bool((reached[:-1] >= reached[1:]).all()) and torch.equal(got_st.success, reached.all(dim=0)))
+            if exact_field:
+                ok = ok and bool(same_steps.all()) and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+            ms = cuda_ms(lambda: roche_dopri5.roche_dopri5_per_row(**inp, **solve))
+            device_ms = queued_ms(lambda: roche_dopri5.roche_dopri5_per_row(**inp, **solve))
+            plain_ms = cuda_ms(lambda: roche_dopri5.roche_dopri5_per_row_reference(**inp, **solve), warmup=1,
+                               runs=PLAIN_RUNS)
+        flops = roche_dopri5.roche_dopri5_flops(got_st.n_steps, D)
+        nbytes = 4 * (B * D + 2 * B + 13 + D * (D - 4) + (D - 4) + T_GRID + T_GRID * B * D) + 9 * B
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        trials = got_st.n_steps.double()
+        row = dict(B=B, D=D, T=T_GRID, hill=2.0 if hill is None else hill, max_steps=max_steps, no_dose_every=no_dose,
+                   exact_field=exact_field, **roche_dopri5.kernel_info(D), err=err, err_plain=err_plain,
+                   err_mean=err_mean, err_mean_plain=err_mean_plain, max_rel_diff=dopri5_error(got, want)[0],
+                   same_steps_share=same_steps.double().mean().item(),
+                   same_steps_max_rel_diff=dopri5_error(got[:, same_steps], want[:, same_steps])[0],
+                   nan_mismatch_rows=int((~same_nan).any(dim=0).any(dim=-1).sum()),
+                   success=int(got_st.success.sum()), success_plain=int(want_st.success.sum()),
+                   trials_max=int(trials.max()), trials_mean=trials.mean().item(),
+                   trials_max_plain=int(want_st.n_steps.max()), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                   flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", within_tol=ok)
+        print("kernel roche_dopri5 " + json.dumps(row), flush=True)
+        if not ok:
+            faults.append(f"roche_dopri5 at B={B} D={D} hill={row['hill']} max_steps={max_steps} exact={exact_field}: "
+                          f"error (mean of rows {err_mean}, largest {err}) against the plain solver's ({err_mean_plain}, "
+                          f"{err_plain}), a NaN that is no tail, a success unlike its outputs, or on the exact field "
+                          "steps or outputs unlike the plain solver's")
+        rows.append(row)
+
+    # One forecast request through the kernel and through the plain solver (KERNEL_DEVICES emptied).
+    model = build_sim_model("hybrid", DataConfig(), max_steps=256)
+    params = init_vi(torch.Generator().manual_seed(seed), model, device="cuda")
+    view = copy.copy(cohort)
+    view.data_test = {k: v[:, :50] for k, v in cohort.data_test.items()}
+    view.test_size = 50
+
+    def request():
+        np.random.seed(seed)
+        t = time.perf_counter()
+        out = evaluate(params, model, view, 50, 5, mc_itr=50, generator=torch.Generator().manual_seed(seed),
+                       verbose=False, device="cuda")
+        return out, time.perf_counter() - t
+
+    request()
+    roche_dopri5.roche_dopri5_per_row.launches = 0
+    kernel = [request() for _ in range(EVAL_REPEATS)]
+    launches = roche_dopri5.roche_dopri5_per_row.launches
+    devices, decoders.KERNEL_DEVICES = decoders.KERNEL_DEVICES, ()
+    try:
+        plain = [request() for _ in range(2)]
+    finally:
+        decoders.KERNEL_DEVICES = devices
+    gap = max(_rel_diff(a, b) for a, b in zip(kernel[0][0], plain[0][0]))
+    line = dict(request_s=[k[1] for k in kernel], request_s_plain=[p[1] for p in plain],
+                launches_per_request=launches / EVAL_REPEATS, scores_max_rel_diff=gap)
+    print("dopri5 " + json.dumps(line), flush=True)
+    if launches != EVAL_REPEATS:
+        faults.append(f"expected one roche_dopri5 launch a forecast request, got {launches} in {EVAL_REPEATS}")
+    if gap > DOPRI5_SCORES_RTOL:
+        faults.append(f"the request's scores through the kernel and the plain solver differ by {gap}")
+    if faults:
+        raise SystemExit("\n".join(faults))
+    return rows, line
+
+
+def dopri5_exact(inp):
+    """The per-row solve of `inp` in float64 at rtol 1e-10, atol 1e-12: the yardstick of both float32 solves."""
+    from hybridode_torch.ops import roche_dopri5
+
+    f64 = {k: (None if v is None else {n: x.double() for n, x in v.items()} if isinstance(v, dict) else v.double())
+           for k, v in inp.items()}
+    ys, _ = roche_dopri5.roche_dopri5_per_row_reference(**f64, rtol=1e-10, atol=1e-12, max_steps=4096)
+    return ys
+
+
+def dopri5_error(ys, exact) -> tuple[float, float]:
+    """(largest, mean of the rows' largest) |ys - exact| over the grid points both reached, relative to the largest
+    finite |exact| of the row's state over the grid (at least DOPRI5_ATOL)."""
+    import torch
+
+    scale = torch.nan_to_num(exact.abs(), nan=0.0).amax(dim=0, keepdim=True).clamp(min=DOPRI5_ATOL)
+    both = torch.isfinite(ys) & torch.isfinite(exact)
+    err = torch.where(both, (ys.double() - exact.double()).abs() / scale, 0.0)
+    if not err.numel():
+        return 0.0, 0.0
+    rows = err.amax(dim=(0, 2))
+    return rows.max().item(), rows.mean().item()
 
 
 def phase_slice(cohort, args):
@@ -1490,10 +1644,12 @@ def phase_fused_apart(args):
     return lines["fused"], lines["parallel"]
 
 
-def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line) -> dict:
+def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line, dopri5_rows,
+                 dopri5_line) -> dict:
     """The `kernels` JSON: the RK4 kernel's numbers at evaluate's shape (B=2550, the one launch of each chunk) and
-    its launches on every path of the run, the main path's beside the others."""
-    main_row = rows[0]
+    its launches on every path of the run, the main path's beside the others; the per-row DOPRI5 kernel's numbers at
+    evaluate's shape and its launches a forecast request (phase 3b)."""
+    main_row, dopri5_row = rows[0], dopri5_rows[0]
     return {"kernels": [dict(
         name="roche_rk4", route="cuda", source="hybridode_torch/ops/csrc/roche_rk4.cu",
         replaces="hybridode/ops/pallas/roche_kernel.py:151", launches=launches,
@@ -1519,6 +1675,12 @@ def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parall
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"], device_ms=main_row["device_ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=None,  # no single PyTorch call computes an RK4 solve of this field
+    ), dict(
+        name="roche_dopri5", route="cuda", source="hybridode_torch/ops/csrc/roche_dopri5.cu", replaces=None,
+        launches_per_forecast_request=dopri5_line["launches_per_request"],
+        max_err=max(r["err"] for r in dopri5_rows), ms=dopri5_row["ms"], device_ms=dopri5_row["device_ms"],
+        plain_ms=dopri5_row["plain_ms"], bound_ms=dopri5_row["bound_ms"], bound_by=dopri5_row["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this solve
     )]}
 
 
@@ -1526,9 +1688,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ckpt", default=None, help="checkpoint path prefix written by either package")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--phase", choices=["fused"], default=None,
-                        help="run only phases 9 and 10 and print their lines (the whole script runs them so, in a "
-                             "process of their own)")
+    parser.add_argument("--phase", choices=["fused", "kernels"], default=None,
+                        help="fused: run only phases 9 and 10 and print their lines (the whole script runs them so, "
+                             "in a process of their own); kernels: run only phases 1-3 and 3b, the kernels")
     args = parser.parse_args(argv)
 
     import torch
@@ -1542,7 +1704,7 @@ def main(argv=None) -> int:
 
     import hybridode_torch
     from hybridode_torch.data import SyntheticCohort
-    from hybridode_torch.ops import build, roche_rk4
+    from hybridode_torch.ops import build, roche_dopri5, roche_rk4
 
     start = time.perf_counter()
     smi = nvidia_smi()
@@ -1555,12 +1717,17 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     built = build.build_all()
     ptxas = [ln.strip() for b in built.values() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
-    info = {D: roche_rk4.kernel_info(D) for D in range(4, roche_rk4.MAX_DIM + 1)}  # registers, spills by D
-    print("build " + json.dumps(dict(seconds=time.perf_counter() - t, kernels=sorted(built), ptxas=ptxas,
-                                     roche_rk4=info)), flush=True)
+    info = {name: {D: mod.kernel_info(D) for D in range(4, roche_rk4.MAX_DIM + 1)}  # registers, spills by D
+            for name, mod in (("roche_rk4", roche_rk4), ("roche_dopri5", roche_dopri5))}
+    print("build " + json.dumps(dict(seconds=time.perf_counter() - t, kernels=sorted(built), ptxas=ptxas, **info)),
+          flush=True)
 
     cohort = SyntheticCohort.load(COHORT, device="cuda")
     rows = phase_kernels(cohort, args.seed)
+    dopri5_rows, dopri5_line = phase_dopri5(cohort, args.seed)
+    if args.phase == "kernels":
+        print(smi, flush=True)
+        return 0
     launches = phase_slice(cohort, args)
     probes = {}
     with _fused_loop(False):  # phases 5-8 measure the host loop, as before the fused loop was ported
@@ -1574,7 +1741,8 @@ def main(argv=None) -> int:
     total_s = time.perf_counter() - start
     print("timing " + json.dumps(dict(phases_s=phases_s, profile_s=total_s - phases_s, total_s=total_s)), flush=True)
 
-    print(json.dumps(kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line)),
+    print(json.dumps(kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line, dopri5_rows,
+                                  dopri5_line)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

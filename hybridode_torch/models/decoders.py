@@ -15,7 +15,9 @@ The simulation decoder has four solves:
 
 * DOPRI5 with per-patient step control (`per_sample_control=True`, the CLI's
   default for the Roche field): one `odeint_dopri5(per_row=True)` over the
-  batch, the counterpart of JAX's `vmap` of one solve per patient.
+  batch, the counterpart of JAX's `vmap` of one solve per patient. A decode
+  of the Roche field that needs no gradient runs the same solve as the CUDA
+  kernel `roche_dopri5_per_row`, one launch (below).
 * DOPRI5 on the adjoint solver (`use_adjoint=True`; the CLI's `--step_control
   lockstep` for the Roche field): `odeint_dopri5_adjoint` with one controller
   for the whole `(B, D)` batch, or per row with `per_sample_control`, its
@@ -26,6 +28,14 @@ The simulation decoder has four solves:
   a CUDA state and no gradient needed.
 * Every other configuration solves with `odeint` in plain PyTorch (DOPRI5 in
   lockstep, or a fixed-step method).
+
+`_kernel_route` picks a kernel from what the decoder observes, with no
+switch: the Roche field without ablation, 4 <= `latent_dim` <= 8, one dose
+per patient, a state on a device of `KERNEL_DEVICES`, no gradient needed
+and no `torch.func` transform; then `roche_dopri5_per_row` for per-patient
+DOPRI5 off the adjoint solver, `roche_rk4_trajectory` for RK4. Training
+steps, `--restart_mode vmap`, the lockstep adjoint, the ablation and the
+neural field, and every CPU state keep the plain solvers.
 
 A decode copies nothing from the host: each spec's grid is put on a device
 once (`device_grid`), so a training step can be captured into a CUDA graph.
@@ -55,6 +65,7 @@ from ..fields import (
     roche_field,
     roche_real_field,
 )
+from ..ops.roche_dopri5 import roche_dopri5_per_row
 from ..ops.roche_rk4 import MAX_DIM, roche_rk4_trajectory
 from ..solvers import FIXED_METHODS, odeint, odeint_dopri5, odeint_dopri5_adjoint
 from . import nn
@@ -115,13 +126,24 @@ def init_sim_decoder(generator, spec: SimDecoderSpec, roche_config: RocheConfig 
     return nn.ParamTree(tree).to(device)
 
 
-def _runs_kernel(spec: SimDecoderSpec, params, init, ctx) -> bool:
-    """The RK4 kernel's configuration, on a CUDA state that needs no gradient and is not inside a
-    `torch.func` transform (the kernel reads raw device pointers)."""
+KERNEL_DEVICES = ("cuda",)  # the device types the kernels run on
+
+
+def _kernel_route(spec: SimDecoderSpec, params, init, ctx) -> Optional[str]:
+    """The kernel that computes the decode, "dopri5" or "rk4", or None: the kernels' field on a state of a
+    kernel device that needs no gradient and is not inside a `torch.func` transform (the kernels read raw
+    device pointers)."""
+    if spec.method == "dopri5" and spec.per_sample_control and not spec.use_adjoint:
+        route = "dopri5"
+    elif spec.method == "rk4":
+        route = "rk4"
+    else:
+        return None
     needs_grad = torch.is_grad_enabled() and (init.requires_grad or any(p.requires_grad for p in params.parameters()))
-    return (spec.method == "rk4" and spec.roche and not spec.ablate and 4 <= spec.latent_dim <= MAX_DIM
-            and ctx.times.shape[-1] == 1 and init.is_cuda and not needs_grad
-            and not torch._C._functorch.is_functorch_wrapped_tensor(init))
+    takes = (spec.roche and not spec.ablate and 4 <= spec.latent_dim <= MAX_DIM and ctx.times.shape[-1] == 1
+             and init.device.type in KERNEL_DEVICES and not needs_grad
+             and not torch._C._functorch.is_functorch_wrapped_tensor(init))
+    return route if takes else None
 
 
 def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
@@ -130,18 +152,22 @@ def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
     ts = device_grid(spec, init.device)
     ode = params["ode"]
     field = roche_field if spec.roche else neural_field
-    if spec.method == "dopri5" and spec.use_adjoint:
+    route = _kernel_route(spec, ode, init, ctx)
+    if route is not None:
+        ml = ode["ml_net"][0] if "ml_net" in ode else None
+        kernel_args = (init.contiguous(), ctx.times[:, 0].contiguous(), ctx.amounts.contiguous(), ode["expert"],
+                       None if ml is None else ml["w"], None if ml is None else ml["b"], ts)
+    if route == "dopri5":
+        h, _ = roche_dopri5_per_row(*kernel_args, rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+    elif route == "rk4":
+        h = roche_rk4_trajectory(*kernel_args, spec.n_substeps)
+    elif spec.method == "dopri5" and spec.use_adjoint:
         h, _ = odeint_dopri5_adjoint(field, init, ts, (ode, ctx), rtol=spec.rtol, atol=spec.atol,
                                      max_steps=spec.max_steps, max_record=spec.max_record,
                                      per_row=spec.per_sample_control)
     elif spec.method == "dopri5" and spec.per_sample_control:
         h, _ = odeint_dopri5(field, init, ts, (ode, ctx), rtol=spec.rtol, atol=spec.atol,
                              max_steps=spec.max_steps, per_row=True)
-    elif _runs_kernel(spec, ode, init, ctx):
-        ml = ode["ml_net"][0] if "ml_net" in ode else None
-        h = roche_rk4_trajectory(init.contiguous(), ctx.times[:, 0].contiguous(), ctx.amounts.contiguous(),
-                                 ode["expert"], None if ml is None else ml["w"], None if ml is None else ml["b"],
-                                 ts, spec.n_substeps)
     else:
         h = odeint(field, init, ts, (ode, ctx), method=spec.method, rtol=spec.rtol, atol=spec.atol,
                    step_size=spec.ode_step_size, n_substeps=spec.n_substeps, max_steps=spec.max_steps)

@@ -7,9 +7,11 @@ shared library with a plain C interface:
 
 without `--use_fast_math` (expf, powf, tanhf and division stay accurate). The
 library goes into `.torch_ext_build/` at the root of the checkout, named by a
-hash of the source and the flags, so a changed source is rebuilt and an
-unchanged one is loaded as it is. `build_all` starts one nvcc per source, all
-together, and waits for them.
+hash of the source, of every header it includes from `csrc/` (`#include
+"..."`, followed into the headers' own includes) and of the flags, so a
+changed source or header is rebuilt and an unchanged one is loaded as it
+is. `build_all` starts one nvcc per source, all together, and waits for
+them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,7 +28,7 @@ from dataclasses import dataclass
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.normpath(os.path.join(CSRC, os.pardir, os.pardir, os.pardir, ".torch_ext_build"))
-KERNELS = ("roche_rk4",)
+KERNELS = ("roche_rk4", "roche_dopri5")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
@@ -49,11 +52,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: str, seen: list[str]) -> list[str]:
+    """`path` and, depth first, every file it includes with quotes from its own directory, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        for name in _INCLUDE.findall(f.read()):
+            _sources(os.path.join(os.path.dirname(path), name.decode()), seen)
+    return seen
+
+
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    digest = hashlib.sha256()
+    for path in _sources(src, []):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build_all(names=KERNELS) -> dict[str, Built]:
@@ -86,3 +106,16 @@ def build_all(names=KERNELS) -> dict[str, Built]:
 def load(name: str) -> ctypes.CDLL:
     """The built library of one kernel, compiled first if need be."""
     return ctypes.CDLL(build_all((name,))[name].path)
+
+
+def kernel_info(lib: ctypes.CDLL, symbol: str, D: int) -> dict:
+    """Registers and local (spill) bytes a thread of the D-state kernel of a loaded library, from its C function
+    `symbol(int D, int *registers, int *local_bytes) -> cudaError_t`."""
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    vals = [ctypes.c_int(0) for _ in range(2)]
+    err = fn(int(D), *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{symbol}(D={D}) failed: cudaError_t {err}")
+    return dict(zip(("registers", "local_bytes"), (v.value for v in vals)))

@@ -37,76 +37,21 @@
 //   the remainder rows by shuffles, were measured slower at D=6 (PERF.md):
 //   the shuffles lengthen the chain more than the split tanh work shortens it.
 //
+// The field, its shared-memory staging and the dose term are in
+// roche_field.cuh, which roche_dopri5.cu includes too.
+//
 // The TPU layout does not carry over: the (8, B) transpose, the 128-lane
 // padding and the exp(p * log(max(x, 1e-30))) power were Mosaic workarounds.
 
 #include <cuda_runtime.h>
 
+#include "roche_field.cuh"
+
 namespace {
 
+using namespace roche;
+
 constexpr int kThreads = 128;
-constexpr int kNumParams = 13;
-
-// Index of each rate constant in ROCHE_PARAM_NAMES order.
-enum {
-  kHillCure, kHillPatho, kEc50Patho, kEmaxPatho, kDexa, kDiscureImmunereact, kDiscureImmunity,
-  kDisprog, kImmuneDisease, kImmuneFeedback, kImmuneOff, kImmunity, kKel
-};
-
-// How the Hill terms |x|**p are taken: both exponents exactly 2, or anything else.
-enum class Hill { kSquare, kGeneral };
-
-template <int D, Hill kHill>
-struct Field {
-  static constexpr int ML = D - 4;
-  float p[kNumParams];
-  float ec50_pow;                  // |ec50_patho| ** HillPatho, constant over the solve
-  float w[ML > 0 ? ML : 1][D];     // w[m] = column m of W
-  float b[ML > 0 ? ML : 1];
-
-  __device__ float hill_pow(float x, float exponent) const {
-    if constexpr (kHill == Hill::kSquare) {
-      return x * x;
-    } else {
-      return powf(fabsf(x), exponent);
-    }
-  }
-
-  // dy = f(y) given kel_dose = kel * dose(t), which depends on t only.
-  __device__ __forceinline__ void operator()(float kel_dose, const float (&y)[D], float (&dy)[D]) const {
-    const float disease = y[0], immune_react = y[1], immunity = y[2], dose2 = y[3];
-
-    dy[0] = disease * p[kDisprog]
-            - disease * hill_pow(immunity, p[kHillCure]) * p[kDiscureImmunity]
-            - disease * immune_react * p[kDiscureImmunereact];
-
-    const float ir_hill = hill_pow(immune_react, p[kHillPatho]);
-    dy[1] = disease * p[kImmuneDisease]
-            - immune_react * p[kImmuneOff]
-            + disease * immune_react * p[kImmuneFeedback]
-            + (ir_hill * p[kEmaxPatho]) / (ec50_pow + ir_hill)
-            - dose2 * immune_react * p[kDexa];
-
-    dy[2] = immune_react * p[kImmunity];
-    dy[3] = kel_dose - p[kKel] * dose2;
-
-#pragma unroll
-    for (int m = 0; m < ML; ++m) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < D; ++j) acc = fmaf(y[j], w[m][j], acc);
-      dy[4 + m] = tanhf(acc + b[m]);
-    }
-  }
-};
-
-// Depot concentration times kel at time t (the field's only t dependence).
-__device__ __forceinline__ float kel_dose_at(float t, float kel, float dose_time, float dose_amount) {
-  const bool active = t >= dose_time;
-  const float delta = active ? dose_time - t : 0.0f;
-  const float contrib = active ? expf(kel * delta) : 0.0f;
-  return kel * (dose_amount * contrib);
-}
 
 template <int D>
 __device__ __forceinline__ void store_state(float* o, const float (&y)[D]) {
@@ -115,20 +60,10 @@ __device__ __forceinline__ void store_state(float* o, const float (&y)[D]) {
 }
 
 template <int D, Hill kHill>
-__device__ __forceinline__ void solve(const float* s_p, const float* s_w, const float* s_b, const float* s_ts,
-                                      const float* y0, float dose_time, float dose_amount, float* out, int row,
-                                      int B, int T, int n_sub) {
-  constexpr int ML = D - 4;
-  Field<D, kHill> f;
-#pragma unroll
-  for (int i = 0; i < kNumParams; ++i) f.p[i] = s_p[i];
-  f.ec50_pow = f.hill_pow(f.p[kEc50Patho], f.p[kHillPatho]);
-#pragma unroll
-  for (int m = 0; m < ML; ++m) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) f.w[m][j] = s_w[j * ML + m];
-    f.b[m] = s_b[m];
-  }
+__device__ __forceinline__ void solve(const Staged& s_c, const float* y0, float dose_time, float dose_amount,
+                                      float* out, int row, int B, int T, int n_sub) {
+  const Field<D, kHill> f = load_field<D, kHill>(s_c);
+  const float* s_ts = s_c.ts;
   const float kel = f.p[kKel];
 
   // RK4 weights rounded to float32 as the plain version rounds them.
@@ -186,27 +121,18 @@ roche_rk4_kernel(const float* __restrict__ y0, const float* __restrict__ times,
                  const float* __restrict__ amounts, const float* __restrict__ params,
                  const float* __restrict__ ml_w, const float* __restrict__ ml_b,
                  const float* __restrict__ ts, float* __restrict__ out, int B, int T, int n_sub) {
-  constexpr int ML = D - 4;
   extern __shared__ float smem[];
-  float* s_p = smem;                 // [13]
-  float* s_w = s_p + kNumParams;     // [D * ML], row-major (D, ML)
-  float* s_b = s_w + D * ML;         // [ML]
-  float* s_ts = s_b + ML;            // [T]
-  for (int i = threadIdx.x; i < kNumParams; i += blockDim.x) s_p[i] = params[i];
-  for (int i = threadIdx.x; i < D * ML; i += blockDim.x) s_w[i] = ml_w[i];
-  for (int i = threadIdx.x; i < ML; i += blockDim.x) s_b[i] = ml_b[i];
-  for (int i = threadIdx.x; i < T; i += blockDim.x) s_ts[i] = ts[i];
-  __syncthreads();
+  const Staged s_c = stage_shared<D>(smem, params, ml_w, ml_b, ts, T);
 
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= B) return;
 
   // One branch for the whole launch: the exponents come from shared memory.
   const float dose_time = times[row], dose_amount = amounts[row];
-  if (s_p[kHillCure] == 2.0f && s_p[kHillPatho] == 2.0f) {
-    solve<D, Hill::kSquare>(s_p, s_w, s_b, s_ts, y0, dose_time, dose_amount, out, row, B, T, n_sub);
+  if (square_hill(s_c)) {
+    solve<D, Hill::kSquare>(s_c, y0, dose_time, dose_amount, out, row, B, T, n_sub);
   } else {
-    solve<D, Hill::kGeneral>(s_p, s_w, s_b, s_ts, y0, dose_time, dose_amount, out, row, B, T, n_sub);
+    solve<D, Hill::kGeneral>(s_c, y0, dose_time, dose_amount, out, row, B, T, n_sub);
   }
 }
 
@@ -214,8 +140,7 @@ template <int D>
 cudaError_t launch(const float* y0, const float* times, const float* amounts, const float* params,
                    const float* ml_w, const float* ml_b, const float* ts, float* out, int B, int T,
                    int n_sub, cudaStream_t stream) {
-  constexpr int ML = D - 4;
-  const size_t smem = sizeof(float) * (kNumParams + D * ML + ML + T);
+  const size_t smem = shared_bytes<D>(T);
   const int blocks = (B + kThreads - 1) / kThreads;
   roche_rk4_kernel<D><<<blocks, kThreads, smem, stream>>>(y0, times, amounts, params, ml_w, ml_b, ts,
                                                           out, B, T, n_sub);

@@ -79,7 +79,7 @@ def roche_rk4_trajectory(y0, times, amounts, expert_params, ml_w, ml_b, ts, n_su
 roche_rk4_trajectory.launches = 0
 
 
-def _check(y0, times, amounts, params, ml_w, ml_b, ts, n_substeps):
+def _check(y0, times, amounts, params, ml_w, ml_b, ts, n_substeps=1):
     if y0.dim() != 2:
         raise ValueError(f"y0 must be (B, D), got {tuple(y0.shape)}")
     B, D = y0.shape
@@ -127,14 +127,9 @@ def _library():
 
 def kernel_info(D: int) -> dict:
     """Registers and local (spill) bytes a thread of the built D-state kernel."""
-    fn = _library().roche_rk4_kernel_info
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
-    vals = [ctypes.c_int(0) for _ in range(2)]
-    err = fn(int(D), *(ctypes.byref(v) for v in vals))
-    if err != 0:
-        raise RuntimeError(f"roche_rk4_kernel_info(D={D}) failed: cudaError_t {err}")
-    return dict(zip(("registers", "local_bytes"), (v.value for v in vals)))
+    from . import build
+
+    return build.kernel_info(_library(), "roche_rk4_kernel_info", D)
 
 
 def roche_rk4_flops(B: int, D: int, T: int, n_substeps: int) -> int:

@@ -37,7 +37,9 @@ import threading
 import time
 from typing import Optional
 
-RING_SIZE = 1 << 16  # spans the process keeps in memory, the oldest dropped first
+# Spans the process keeps in memory, the oldest dropped first: ~80 MB of Python objects at most. A forecast request
+# records 6, and a 51 s window of the benchmark's forecast cell holds ~13,000 requests on an H100 (PERF.md §5).
+RING_SIZE = 1 << 18
 _OPEN = object()  # a span's parent by default: the innermost span open in its thread
 
 

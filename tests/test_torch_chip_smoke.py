@@ -101,7 +101,8 @@ def test_phase_10_reads_the_dryrun_ok_lines():
 def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
     """The `kernels` JSON carries phase 10's paths beside the others: `evaluate_sharded` (4 launches, one a chunk)
     and the DP fused training (0); and phases 5 and 8's new paths: the native generator, the lockstep restarts
-    batched and in turn, the checkpoint_steps probe (0 each)."""
+    batched and in turn, the checkpoint_steps probe (0 each); and, from phase 3b, the per-row DOPRI5 kernel's
+    numbers at evaluate's shape and its one launch a forecast request."""
     row = dict(max_abs_err=1e-6, ms=0.19, device_ms=0.06, plain_ms=260.0, bound_ms=0.0014, bound_by="operations")
     rk4 = dict(roche_rk4_launches=4)
     none = dict(roche_rk4_launches=0)
@@ -111,8 +112,9 @@ def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
                                    dict(train=none, create_data=dict(none, native=none),
                                         restarts=dict(vmap=none, seq=none)),
                                    dict(roche_rk4_launches=dict(gpu=0, vmap=0)),
-                                   dict(evaluate_sharded=rk4, dp_fused=none))
-    (k,) = line["kernels"]
+                                   dict(evaluate_sharded=rk4, dp_fused=none),
+                                   [dict(row, err=2e-4), dict(row, err=3e-4)], dict(launches_per_request=1.0))
+    k, dopri5 = line["kernels"]
     paths = k["launches_by_path"]
     assert k["launches"] == 4 and paths["evaluate_sharded"] == 4
     assert paths["fused_dp"] == 0 and paths["fused_vmap"] == 0
@@ -120,6 +122,8 @@ def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
         [0, 0, 0, 0]
     assert set(k) >= {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms"}
+    assert dopri5["name"] == "roche_dopri5" and dopri5["launches_per_forecast_request"] == 1.0
+    assert dopri5["max_err"] == 3e-4 and dopri5["device_ms"] == 0.06
 
 
 def test_phase_8_holds_the_native_generator_against_data_s123():
