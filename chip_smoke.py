@@ -19,8 +19,8 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    (spill) bytes a thread.
 3b. DOPRI5 kernel: the per-row DOPRI5 kernel against the plain per-row
    solver on the card (`DOPRI5_CASES`: evaluate's shape, the validation's
-   chunk of 50, D=4 and 8, Hill 1.7, rows without a dose, a budget of 64,
-   and a field both compute exactly, on which the two must agree bit for
+   chunk of 50, D=4, 8 and 12, Hill 1.7, rows without a dose, a budget of
+   64, and a field both compute exactly, on which the two must agree bit for
    bit), each against the same solve in float64; its times as phase 3's;
    its registers and spills; one forecast request (`evaluate` of 50 patients, mc 50) through the kernel
    (one launch) and through the plain solver, and their scores.
@@ -262,7 +262,8 @@ KERNEL_CASES = [(2550, 6, None), (2500, 6, None), (50, 6, None), (1000, 4, None)
 # outputs must be the plain solver's bit for bit.
 DOPRI5_CASES = [(2550, 6, None, 256, 0, False), (50, 6, None, 256, 0, False), (2550, 4, None, 256, 0, False),
                 (2550, 8, None, 256, 0, False), (2550, 6, 1.7, 256, 0, False), (2550, 6, None, 256, 5, False),
-                (2550, 6, None, 64, 0, False), (2550, 6, None, 256, 0, True), (2550, 6, None, 64, 0, True)]
+                (2550, 6, None, 64, 0, False), (2550, 12, None, 256, 0, False), (2550, 6, None, 256, 0, True),
+                (2550, 6, None, 64, 0, True), (2550, 12, None, 256, 0, True)]
 DOPRI5_TOL = (1e-7, 1e-8)  # the CLI's rtol, atol
 # Kernel and plain solver against the same solve in float64 (rtol 1e-10): at rtol 1e-7 the float32 error estimate
 # is rounding noise, so on the real field the two float32 solvers take other steps on most rows, each within its own

@@ -22,7 +22,8 @@ draws alone (its point is the posterior mean). An ensemble draws member e's
 noise, then member m's.
 
 Each call of a public `evaluate*` function is a root span of its name
-(`utils/logging.py`); under it, each chunk's `encode` and `decode`, the
+(`utils/logging.py`); under it, each chunk's `encode` and `decode` (with
+the decode's `rows`, `dim` and the decoder's `route`), the
 `score` spans (the per-patient terms and their read to the host) and the
 `bootstrap` span (the scores and their bootstrap on the host).
 """
@@ -97,7 +98,7 @@ def _chunk_forward(params, model: VIModel, batch, t0: int, eps, eps_point=None):
     mc, B, D = eps.shape
     z_all = torch.cat([z0_hat[None], z_mc]).reshape((mc + 1) * B, D)  # the point first, then the draws MC-major
     actions_all = batch["actions"].repeat(1, mc + 1, 1)  # (T, (MC+1)*B, A), in z_all's order
-    with span("decode"):
+    with span("decode", rows=(mc + 1) * B, dim=D):
         x_all, _ = decode(params, model, z_all, {"actions": actions_all})
     x_all = x_all.reshape(x_all.shape[0], mc + 1, B, -1)
     x_hat = x_all[:, 0]  # (T, B, obs)

@@ -24,18 +24,20 @@ The simulation decoder has four solves:
   backward replaying only the accepted steps (at most `max_record` of them).
 * The RK4 solve of the Roche field runs the CUDA kernel `roche_rk4_trajectory`
   when the configuration is the one that kernel computes: `method == "rk4"`,
-  the Roche field without ablation, `latent_dim <= 8`, one dose per patient,
+  the Roche field without ablation, `latent_dim <= 12`, one dose per patient,
   a CUDA state and no gradient needed.
 * Every other configuration solves with `odeint` in plain PyTorch (DOPRI5 in
   lockstep, or a fixed-step method).
 
 `_kernel_route` picks a kernel from what the decoder observes, with no
-switch: the Roche field without ablation, 4 <= `latent_dim` <= 8, one dose
-per patient, a state on a device of `KERNEL_DEVICES`, no gradient needed
-and no `torch.func` transform; then `roche_dopri5_per_row` for per-patient
-DOPRI5 off the adjoint solver, `roche_rk4_trajectory` for RK4. Training
-steps, `--restart_mode vmap`, the lockstep adjoint, the ablation and the
-neural field, and every CPU state keep the plain solvers.
+switch: the Roche field without ablation, 4 <= `latent_dim` <= `MAX_DIM`
+(12), one dose per patient, a state on a device of `KERNEL_DEVICES`, no
+gradient needed and no `torch.func` transform; then `roche_dopri5_per_row`
+for per-patient DOPRI5 off the adjoint solver, `roche_rk4_trajectory` for
+RK4. Training steps, `--restart_mode vmap`, the lockstep adjoint, the
+ablation and the neural field, and every CPU state keep the plain solvers.
+A decode names its route ("dopri5", "rk4" or "plain") on the `decode` span
+its caller has open.
 
 A decode copies nothing from the host: each spec's grid is put on a device
 once (`device_grid`), so a training step can be captured into a CUDA graph.
@@ -68,6 +70,7 @@ from ..fields import (
 from ..ops.roche_dopri5 import roche_dopri5_per_row
 from ..ops.roche_rk4 import MAX_DIM, roche_rk4_trajectory
 from ..solvers import FIXED_METHODS, odeint, odeint_dopri5, odeint_dopri5_adjoint
+from ..utils.logging import annotate
 from . import nn
 
 
@@ -153,6 +156,7 @@ def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
     ode = params["ode"]
     field = roche_field if spec.roche else neural_field
     route = _kernel_route(spec, ode, init, ctx)
+    annotate("decode", route=route or "plain")
     if route is not None:
         ml = ode["ml_net"][0] if "ml_net" in ode else None
         kernel_args = (init.contiguous(), ctx.times[:, 0].contiguous(), ctx.amounts.contiguous(), ode["expert"],

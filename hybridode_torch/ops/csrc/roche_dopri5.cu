@@ -39,8 +39,20 @@
 //
 // Design, each point measured on the card (PERF.md §6; chip_smoke.py's
 // phase 3b times the kernel):
-// - One thread a row; y, the seven stages and the step's sums in registers
-//   (D is a template parameter): 94-167 registers for D = 4 ... 8, no spills.
+// - One thread a row; y, the seven stages, the step's sums, W and b in
+//   registers (D is a template parameter): 89-168 registers for D = 4 ... 8,
+//   208, 234 and 255 for D = 9, 10 and 11, no spills. At D = 12 the 255
+//   registers a thread may hold are short: 80 bytes a thread spill to local
+//   memory, which stays in L1 at one warp an SM. Two ways to spill nothing
+//   were measured against it at 2,550 rows, D = 12 (one call, H100 at
+//   700 W): this design 0.872 ms; W and b re-read from shared memory at each
+//   evaluation (192 registers) 0.998 ms; the seven stages in shared memory
+//   (7 D + 1 words a thread) 0.903 ms with W in registers, which still
+//   spills, and 1.185 ms with W in shared memory too (247 registers). Each
+//   shared-memory read sits on the row's serial chain, where a spilled
+//   register is reloaded off it, so the spilling design is kept. From D = 9
+//   to 12 the time grows with the field's work: 0.626, 0.702, 0.809 and
+//   0.878 ms (D = 6: 0.353 ms).
 // - Blocks of 32 threads, so that the warps spread over the SMs. Blocks of
 //   64 and 128 took the same time at 2,550 rows (0.279-0.285 ms).
 // - Rows in the caller's order. Evaluate's rows come point first, then the
@@ -54,7 +66,8 @@
 // - Each thread writes its own outputs, NaN included, so the wrapper
 //   allocates with torch.empty and the decode is this one launch. With a
 //   tally (`dopri5.full_budget(tally)`), each warp adds the sum of its rows'
-//   trial steps to both counters with one atomic each. The kernel allocates
+//   trial steps to both counters with one atomic each; with `counts` (an
+//   eager launch's), its rows' trial and accepted steps. The kernel allocates
 //   nothing and never synchronises, so a CUDA graph can capture it.
 
 #include <cuda_runtime.h>
@@ -110,12 +123,12 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
 // `_rms_norm` over the row: sqrt(mean(x ** 2)). The squares are summed in the order of PyTorch's CUDA mean over a
-// row of 4 <= D <= 8 (found on the card by matching every order of the adds): W lanes, W the largest power of two
-// <= D, lane i adds x[i] ** 2 and x[i + W] ** 2, then the lanes fold at offsets W / 2, ..., 1; the sum times
-// float(1 / D).
+// row of 4 <= D <= 12 (found on the card by matching every order of the adds for D <= 8, and held bit for bit
+// against PyTorch's for D = 9 ... 12): W lanes, W the largest power of two <= D, lane i adds x[i] ** 2 and
+// x[i + W] ** 2, then the lanes fold at offsets W / 2, ..., 1; the sum times float(1 / D).
 template <int D>
 __device__ __forceinline__ float rms(const float (&x)[D], float inv_dim) {
-  static_assert(D >= 4 && D <= 8, "the reduction order is that of 4 <= D <= 8");
+  static_assert(D >= 4 && D <= 12, "the reduction order is that of 4 <= D <= 12");
   constexpr int W = D >= 8 ? 8 : 4;
   float lane[W];
 #pragma unroll
@@ -132,8 +145,8 @@ __device__ __forceinline__ float rms(const float (&x)[D], float inv_dim) {
 }
 
 // torch.tensordot(w, k, dims=1) at one element, sum_j w[j] * k[j][d], summed as cuBLAS sums it at the decoder's
-// shapes (measured on the H100 at 50 and 2,550 rows; at 100,000 rows cuBLAS takes one chain): FMA chains over
-// stages 0-3 and 4-6, then their sum.
+// shapes (measured on the H100 at 50 and 2,550 rows of D = 4 ... 12; at 100,000 rows cuBLAS takes one chain): FMA
+// chains over stages 0-3 and 4-6, then their sum.
 template <int D>
 __device__ __forceinline__ float tensordot(const float* w, const float (&k)[7][D], int d) {
   float lo = mul(w[0], k[0][d]), hi = mul(w[4], k[4][d]);
@@ -198,11 +211,13 @@ __device__ __forceinline__ void store_nan(float* o) {
   for (int d = 0; d < D; ++d) o[d] = __int_as_float(0x7fc00000);
 }
 
-// One row's whole solve -> its trial steps; writes out[:, row], n_accepted and success.
+// One row's whole solve -> its trial steps, and its accepted steps in `accepted`; writes out[:, row], n_accepted and
+// success.
 template <int D, Hill kHill>
 __device__ int solve(const Staged& s_c, const Tolerances& tol, const float* __restrict__ y0,
                      const float* __restrict__ times, const float* __restrict__ amounts, float* __restrict__ out,
-                     int* __restrict__ n_accepted, bool* __restrict__ success, int row, int B, int T, int budget) {
+                     int* __restrict__ n_accepted, bool* __restrict__ success, int row, int B, int T, int budget,
+                     int& accepted) {
   const Field<D, kHill> f = load_field<D, kHill>(s_c);
   const Row<D, kHill> r{f, f.p[kKel], times[row], amounts[row]};
   const float* ts = s_c.ts;
@@ -309,6 +324,7 @@ __device__ int solve(const Staged& s_c, const Tolerances& tol, const float* __re
   for (; next < T; ++next) store_nan<D>(o + static_cast<size_t>(next) * stride);
   n_accepted[row] = n_acc;
   success[row] = finished && finite;
+  accepted = n_acc;
   return n_trial;
 }
 
@@ -318,25 +334,34 @@ roche_dopri5_kernel(const float* __restrict__ y0, const float* __restrict__ time
                     const float* __restrict__ amounts, const float* __restrict__ params,
                     const float* __restrict__ ml_w, const float* __restrict__ ml_b, const float* __restrict__ ts,
                     Tolerances tol, float* __restrict__ out, int* __restrict__ n_trial,
-                    int* __restrict__ n_accepted, bool* __restrict__ success, long long* __restrict__ tally, int B,
-                    int T, int budget) {
+                    int* __restrict__ n_accepted, bool* __restrict__ success, long long* __restrict__ tally,
+                    long long* __restrict__ counts, int B, int T, int budget) {
   extern __shared__ float smem[];
   const Staged s_c = stage_shared<D>(smem, params, ml_w, ml_b, ts, T);
 
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  int trials = 0;
+  int trials = 0, accepted = 0;
   if (row < B) {
     // One branch for the whole launch: the exponents come from shared memory.
-    trials = square_hill(s_c)
-                 ? solve<D, Hill::kSquare>(s_c, tol, y0, times, amounts, out, n_accepted, success, row, B, T, budget)
-                 : solve<D, Hill::kGeneral>(s_c, tol, y0, times, amounts, out, n_accepted, success, row, B, T, budget);
+    trials = square_hill(s_c) ? solve<D, Hill::kSquare>(s_c, tol, y0, times, amounts, out, n_accepted, success, row,
+                                                        B, T, budget, accepted)
+                              : solve<D, Hill::kGeneral>(s_c, tol, y0, times, amounts, out, n_accepted, success,
+                                                         row, B, T, budget, accepted);
     n_trial[row] = trials;
   }
-  if (tally != nullptr) {
-    const unsigned warp_sum = __reduce_add_sync(0xffffffffu, static_cast<unsigned>(trials));
-    if ((threadIdx.x & 31) == 0 && warp_sum != 0) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(tally), static_cast<unsigned long long>(warp_sum));
-      atomicAdd(reinterpret_cast<unsigned long long*>(tally + 1), static_cast<unsigned long long>(warp_sum));
+  if (tally != nullptr || counts != nullptr) {
+    using u64 = unsigned long long;
+    const u64 warp_trials = __reduce_add_sync(0xffffffffu, static_cast<unsigned>(trials));
+    const u64 warp_accepted = counts != nullptr ? __reduce_add_sync(0xffffffffu, static_cast<unsigned>(accepted)) : 0;
+    if ((threadIdx.x & 31) == 0 && warp_trials != 0) {
+      if (tally != nullptr) {
+        atomicAdd(reinterpret_cast<u64*>(tally), warp_trials);
+        atomicAdd(reinterpret_cast<u64*>(tally + 1), warp_trials);
+      }
+      if (counts != nullptr) {
+        atomicAdd(reinterpret_cast<u64*>(counts), warp_trials);
+        atomicAdd(reinterpret_cast<u64*>(counts + 1), warp_accepted);
+      }
     }
   }
 }
@@ -344,11 +369,12 @@ roche_dopri5_kernel(const float* __restrict__ y0, const float* __restrict__ time
 template <int D>
 cudaError_t launch(const float* y0, const float* times, const float* amounts, const float* params,
                    const float* ml_w, const float* ml_b, const float* ts, Tolerances tol, float* out, int* n_trial,
-                   int* n_accepted, bool* success, long long* tally, int B, int T, int budget,
+                   int* n_accepted, bool* success, long long* tally, long long* counts, int B, int T, int budget,
                    cudaStream_t stream) {
   const int blocks = (B + kThreads - 1) / kThreads;
   roche_dopri5_kernel<D><<<blocks, kThreads, shared_bytes<D>(T), stream>>>(
-      y0, times, amounts, params, ml_w, ml_b, ts, tol, out, n_trial, n_accepted, success, tally, B, T, budget);
+      y0, times, amounts, params, ml_w, ml_b, ts, tol, out, n_trial, n_accepted, success, tally, counts, B, T,
+      budget);
   return cudaGetLastError();
 }
 
@@ -365,24 +391,30 @@ cudaError_t info(int* registers, int* local_bytes) {
 
 // Plain C entry point, bound with ctypes. All pointers are device pointers to contiguous arrays: y0 (B, D),
 // times (B,), amounts (B,), params (13,), ml_w (D, D-4) and ml_b (D-4,) (null when D == 4), ts (T,) float32;
-// out (T, B, D) float32, n_trial and n_accepted (B,) int32, success (B,) bool, all written; tally (2,) int64 or null.
-// Returns the launch's cudaError_t (0 on success).
+// out (T, B, D) float32, n_trial and n_accepted (B,) int32, success (B,) bool, all written; tally (2,) int64 or null,
+// to which each row's trial steps are added twice (live, run); counts (2,) int64 or null, to which its trial and its
+// accepted steps are added. Returns the launch's cudaError_t (0 on success).
 extern "C" int roche_dopri5_per_row_launch(const float* y0, const float* times, const float* amounts,
                                            const float* params, const float* ml_w, const float* ml_b,
                                            const float* ts, float rtol, float atol, float floor, float rtol_floor,
                                            float* out, int* n_trial, int* n_accepted, bool* success,
-                                           long long* tally, int B, int D, int T, int budget, void* stream) {
+                                           long long* tally, long long* counts, int B, int D, int T, int budget,
+                                           void* stream) {
   const Tolerances tol{rtol, atol, floor, rtol_floor, 1.0f / static_cast<float>(D)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ROCHE_DOPRI5_LAUNCH(DIM)                                                                              \
-  launch<DIM>(y0, times, amounts, params, ml_w, ml_b, ts, tol, out, n_trial, n_accepted, success, tally, B, T, \
-              budget, s)
+#define ROCHE_DOPRI5_LAUNCH(DIM)                                                                               \
+  launch<DIM>(y0, times, amounts, params, ml_w, ml_b, ts, tol, out, n_trial, n_accepted, success, tally, counts, \
+              B, T, budget, s)
   switch (D) {
     case 4: return ROCHE_DOPRI5_LAUNCH(4);
     case 5: return ROCHE_DOPRI5_LAUNCH(5);
     case 6: return ROCHE_DOPRI5_LAUNCH(6);
     case 7: return ROCHE_DOPRI5_LAUNCH(7);
     case 8: return ROCHE_DOPRI5_LAUNCH(8);
+    case 9: return ROCHE_DOPRI5_LAUNCH(9);
+    case 10: return ROCHE_DOPRI5_LAUNCH(10);
+    case 11: return ROCHE_DOPRI5_LAUNCH(11);
+    case 12: return ROCHE_DOPRI5_LAUNCH(12);
     default: return cudaErrorInvalidValue;
   }
 #undef ROCHE_DOPRI5_LAUNCH
@@ -397,6 +429,10 @@ extern "C" int roche_dopri5_kernel_info(int D, int* registers, int* local_bytes)
     case 6: return info<6>(registers, local_bytes);
     case 7: return info<7>(registers, local_bytes);
     case 8: return info<8>(registers, local_bytes);
+    case 9: return info<9>(registers, local_bytes);
+    case 10: return info<10>(registers, local_bytes);
+    case 11: return info<11>(registers, local_bytes);
+    case 12: return info<12>(registers, local_bytes);
     default: return cudaErrorInvalidValue;
   }
 }

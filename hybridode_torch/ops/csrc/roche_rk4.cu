@@ -173,6 +173,10 @@ extern "C" int roche_rk4_trajectory_launch(const float* y0, const float* times, 
     case 6: return launch<6>(y0, times, amounts, params, ml_w, ml_b, ts, out, B, T, n_sub, s);
     case 7: return launch<7>(y0, times, amounts, params, ml_w, ml_b, ts, out, B, T, n_sub, s);
     case 8: return launch<8>(y0, times, amounts, params, ml_w, ml_b, ts, out, B, T, n_sub, s);
+    case 9: return launch<9>(y0, times, amounts, params, ml_w, ml_b, ts, out, B, T, n_sub, s);
+    case 10: return launch<10>(y0, times, amounts, params, ml_w, ml_b, ts, out, B, T, n_sub, s);
+    case 11: return launch<11>(y0, times, amounts, params, ml_w, ml_b, ts, out, B, T, n_sub, s);
+    case 12: return launch<12>(y0, times, amounts, params, ml_w, ml_b, ts, out, B, T, n_sub, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -186,6 +190,10 @@ extern "C" int roche_rk4_kernel_info(int D, int* registers, int* local_bytes) {
     case 6: return info<6>(registers, local_bytes);
     case 7: return info<7>(registers, local_bytes);
     case 8: return info<8>(registers, local_bytes);
+    case 9: return info<9>(registers, local_bytes);
+    case 10: return info<10>(registers, local_bytes);
+    case 11: return info<11>(registers, local_bytes);
+    case 12: return info<12>(registers, local_bytes);
     default: return cudaErrorInvalidValue;
   }
 }

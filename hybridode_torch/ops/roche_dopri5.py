@@ -15,7 +15,10 @@ anything it cannot take; on CPU tensors it runs the plain version
 Each launch adds one to `roche_dopri5_per_row.launches`. Inside
 `dopri5.full_budget(tally)` the kernel adds the sum of its rows' trial steps
 to both counters of the tally, on the device: it runs no trial step for a
-finished row, so its live and its run trial steps are the same.
+finished row, so its live and its run trial steps are the same. Each launch
+outside a CUDA graph's capture adds its rows' trial and accepted steps, on
+the device, and its rows, on the host, to the process-wide counter `EAGER`,
+which `EAGER.read()` reads.
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ from ..config import ROCHE_PARAM_NAMES
 from ..fields import DoseContext, roche_field
 from ..solvers import dopri5
 from ..solvers.dopri5 import Dopri5Stats, odeint_dopri5
+from ..utils.logging import DeviceCounter
 from .roche_rk4 import _check
+
+# The eager launches' sums: trial and accepted steps on the device, launches and rows on the host. `EAGER.read()`
+# reads each device once: call it outside a timed stretch.
+EAGER = DeviceCounter(("trial_steps", "accepted_steps"), ("launches", "rows"))
 
 
 def roche_dopri5_per_row_reference(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol: float = 1e-7,
@@ -47,7 +55,7 @@ def roche_dopri5_per_row(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol
     """Solve the hybrid Roche field from each row of `y0` with its own adaptive DOPRI5 controller.
 
     Args:
-      y0: (B, D) initial latents, 4 <= D <= 8 (4 expert states + ml remainder).
+      y0: (B, D) initial latents, 4 <= D <= 12, `roche_rk4.MAX_DIM` (4 expert states + ml remainder).
       times: (B,) single-bolus dose times (NO_DOSE_TIME for no dose).
       amounts: (B,) dose amounts.
       expert_params: mapping of the 13 scalar rate constants (ROCHE_PARAM_NAMES).
@@ -75,17 +83,22 @@ def roche_dopri5_per_row(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol
     n_trial, n_acc = (torch.empty(B, dtype=torch.int32, device=y0.device) for _ in range(2))
     success = torch.empty(B, dtype=torch.bool, device=y0.device)
     floor, rtol_floor = dopri5._noise_floor(torch.float32, rtol)
+    eager = not torch.cuda.is_current_stream_capturing()
+    counts = EAGER.tensor(y0.device) if eager else None
     err = _library().roche_dopri5_per_row_launch(
         y0.data_ptr(), times.data_ptr(), amounts.data_ptr(), params.data_ptr(),
         None if ml_w is None else ml_w.data_ptr(), None if ml_b is None else ml_b.data_ptr(), ts.data_ptr(),
         float(rtol), float(atol), floor, rtol_floor,  # ctypes rounds each to float32, as PyTorch does
         out.data_ptr(), n_trial.data_ptr(), n_acc.data_ptr(), success.data_ptr(),
-        None if tally is None else tally.data_ptr(), B, D, T, trial_budget(max_steps),
+        None if tally is None else tally.data_ptr(), None if counts is None else counts.data_ptr(), B, D, T,
+        trial_budget(max_steps),
         torch.cuda.current_stream(y0.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"roche_dopri5 kernel launch failed: cudaError_t {err}")
     roche_dopri5_per_row.launches += 1
+    if eager:
+        EAGER.add(launches=1, rows=B)
     return out, Dopri5Stats(n_steps=n_trial, n_accepted=n_acc, success=success)
 
 
@@ -105,7 +118,7 @@ def _library():
     fn = lib.roche_dopri5_per_row_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
     return lib
 

@@ -28,7 +28,7 @@ from ..config import ROCHE_PARAM_NAMES
 from ..fields import DoseContext, roche_field
 from ..solvers import odeint_fixed
 
-MAX_DIM = 8
+MAX_DIM = 12  # the largest latent width the kernels are built for (roche_rk4 and roche_dopri5)
 MAX_GRID = 8192  # ts is staged in the block's shared memory (48 KB without opt-in)
 
 
@@ -45,7 +45,7 @@ def roche_rk4_trajectory(y0, times, amounts, expert_params, ml_w, ml_b, ts, n_su
     """Integrate the hybrid Roche field with fused RK4.
 
     Args:
-      y0: (B, D) initial latents, 4 <= D <= 8 (4 expert states + ml remainder).
+      y0: (B, D) initial latents, 4 <= D <= 12, `MAX_DIM` (4 expert states + ml remainder).
       times: (B,) single-bolus dose times (NO_DOSE_TIME for no dose).
       amounts: (B,) dose amounts.
       expert_params: mapping of the 13 scalar rate constants (ROCHE_PARAM_NAMES).

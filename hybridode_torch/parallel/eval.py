@@ -67,7 +67,7 @@ def make_sharded_eval_chunk(model: VIModel, mesh, t0: int, mc_itr: int, expert_d
             z0_hat, z_mc = mu, priors.gaussian_reparameterize(mu, log_var, eps_loc)
         mc, B, D = eps_loc.shape
         z_all = torch.cat([z0_hat[None], z_mc]).reshape((mc + 1) * B, D)  # the point, then the local draws
-        with span("decode"):
+        with span("decode", rows=(mc + 1) * B, dim=D):
             x_all, _ = decode(params, model, z_all, {"actions": local["actions"].repeat(1, mc + 1, 1)})
         x_all = x_all.reshape(x_all.shape[0], mc + 1, B, -1)
         x_hat, x_mc = x_all[:, 0], x_all[:, 1:].transpose(0, 1)  # (T, B, obs), (MC_loc, T, B, obs)

@@ -12,6 +12,14 @@ A span costs host work only: no device call, no synchronize and no profiler
 range (a profiler's user range would put a `gpu_user_annotation` copy of
 itself on the device timeline, among the kernels).
 
+A span's fields may be added while it is open, also by code that does not
+hold it (`annotate`): the decoder names the route of the `decode` span that
+its caller opened.
+
+A `DeviceCounter` holds sums that a kernel adds on the device, in one int64
+tensor a device, beside counts that the host keeps; only its `read` copies
+them to the host, once.
+
 `JSONLLogger` writes the spans of a loop or a CLI to its file, one record a
 span when it ends (`t`, `event`, the fields, `t0`, `t1`, `id`, `parent`,
 `root`, and `seconds` for a span that lasts). A span is recorded whether or
@@ -36,6 +44,8 @@ import os
 import threading
 import time
 from typing import Optional
+
+import torch
 
 # Spans the process keeps in memory, the oldest dropped first: ~80 MB of Python objects at most. A forecast request
 # records 6, and a 51 s window of the benchmark's forecast cell holds ~13,000 requests on an H100 (PERF.md §5).
@@ -137,6 +147,44 @@ RECORDER = Recorder()
 def span(name: str, parent=_OPEN, **fields) -> Span:
     """A span of the process's recorder, kept in its ring alone."""
     return RECORDER.span(name, parent, **fields)
+
+
+def annotate(name: str, **fields) -> None:
+    """Adds `fields` to the innermost open span of this thread if it is named `name`; does nothing otherwise."""
+    stack = RECORDER._open.stack
+    if stack and stack[-1].name == name:
+        stack[-1].fields.update(fields)
+
+
+class DeviceCounter:
+    """Process-wide sums that kernels add on the device, `names` in an int64 tensor a device, and the host's own
+    counts `host_names` beside them. A kernel adds into `tensor(device)` with atomics, so no count costs a host read;
+    `read` copies each device's tensor to the host once."""
+
+    def __init__(self, names: tuple, host_names: tuple):
+        self.names = names
+        self.host = dict.fromkeys(host_names, 0)
+        self._device = {}
+
+    def tensor(self, device):
+        """The `(len(names),)` int64 tensor that kernels on `device` add to, zeroed at its first use."""
+        t = self._device.get(device)
+        if t is None:
+            t = self._device[device] = torch.zeros(len(self.names), dtype=torch.int64, device=device)
+        return t
+
+    def add(self, **counts) -> None:
+        """Adds to the host's counts."""
+        for k, v in counts.items():
+            self.host[k] += v
+
+    def read(self) -> dict:
+        """The host's counts and the device sums over every device, by name."""
+        out = dict(self.host) | dict.fromkeys(self.names, 0)
+        for t in self._device.values():
+            for k, v in zip(self.names, t.tolist()):
+                out[k] += v
+        return out
 
 
 def root_span(fn):

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from hybridode_torch.cli.common import build_sim_model
-from hybridode_torch.config import ROCHE_PARAM_NAMES, DataConfig, RocheConfig
+from hybridode_torch.config import ROCHE_PARAM_NAMES, DataConfig, RocheConfig, dim12_config
 from hybridode_torch.data import SyntheticCohort
 from hybridode_torch.eval import evaluate
 from hybridode_torch.fields import NO_DOSE_TIME, init_roche_field
@@ -35,6 +35,7 @@ from hybridode_torch.solvers import dopri5
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 COHORT = os.path.join(ROOT, "data_s123", "datafile_dose_exp.pkl")
+DIM12_COHORT = os.path.join(ROOT, "data_dim12", "datafile_dim12.pkl")
 SIM_CONFIG = os.path.join(ROOT, "benchmark", "configs", "lhm_sim_hybrid.json")
 B, T = 2550, 15
 # The kernel's error against the float64 solve, relative to the row's largest |state| over the grid: averaged over the
@@ -102,8 +103,10 @@ def _lhm_sim_hybrid():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [dict(), dict(D=4), dict(hill=1.7), dict(no_dose=5), dict(config="lhm_sim_hybrid")],
-                         ids=["evaluate_shape", "expert_only", "hill_1.7", "rows_without_dose", "lhm_sim_hybrid"])
+@pytest.mark.parametrize("case", [dict(), dict(D=4), dict(hill=1.7), dict(no_dose=5), dict(config="lhm_sim_hybrid"),
+                                  dict(D=9), dict(D=10), dict(D=11), dict(D=12)],
+                         ids=["evaluate_shape", "expert_only", "hill_1.7", "rows_without_dose", "lhm_sim_hybrid",
+                              "latent_9", "latent_10", "latent_11", "latent_12"])
 def test_kernel_is_as_accurate_as_the_plain_solver(cohort, case):
     if case.get("config"):
         case = dict(case, config=_lhm_sim_hybrid())
@@ -137,8 +140,10 @@ def test_a_row_that_spends_its_budget_ends_in_nan_and_fails(cohort):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,max_steps", [(6, 256), (4, 256), (8, 256), (6, 64)],
-                         ids=["evaluate_shape", "expert_only", "latent_8", "budget_64"])
+@pytest.mark.parametrize("D,max_steps", [(6, 256), (4, 256), (8, 256), (6, 64), (9, 256), (10, 256), (11, 256),
+                                         (12, 256), (12, 64)],
+                         ids=["evaluate_shape", "expert_only", "latent_8", "budget_64", "latent_9", "latent_10",
+                              "latent_11", "latent_12", "latent_12_budget_64"])
 def test_steps_match_the_plain_solver_where_the_step_sequence_does_not_branch(cohort, D, max_steps):
     """On the EXACT field no rounding of the field parts the two solvers' step sequences: the kernel's outputs, NaN
     tails, trial and accepted counts and successes are the plain solver's, bit for bit."""
@@ -180,6 +185,29 @@ def test_a_captured_replay_equals_the_eager_call_and_fills_the_tally(cohort):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [6, 12])
+def test_eager_launches_add_their_rows_steps_to_the_process_counter_and_captured_ones_do_not(cohort, D):
+    """`EAGER.read()` grows by each eager launch's rows and the sums of its per-row trial and accepted steps; a
+    launch captured into a CUDA graph, and its replays, add nothing to it."""
+    inp = _inputs(cohort, D=D, rows=50)
+    with torch.no_grad():
+        before = roche_dopri5.EAGER.read()
+        _, st = roche_dopri5.roche_dopri5_per_row(**inp)
+        after = roche_dopri5.EAGER.read()
+        assert after["launches"] == before["launches"] + 1 and after["rows"] == before["rows"] + 50
+        assert after["trial_steps"] - before["trial_steps"] == int(st.n_steps.sum())
+        assert after["accepted_steps"] - before["accepted_steps"] == int(st.n_accepted.sum())
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=stream):
+            roche_dopri5.roche_dopri5_per_row(**inp)
+        graph.replay()
+        torch.cuda.synchronize()
+        graph.reset()
+    assert roche_dopri5.EAGER.read() == after
+
+
+@pytest.mark.cuda
 def test_evaluate_through_the_kernel_matches_the_plain_solver(cohort, monkeypatch):
     """`evaluate` of 50 patients (mc 50, t0 5) at random weights: one launch a chunk, the six scores within
     SCORES_RTOL of the same call with the kernel routed off (`KERNEL_DEVICES` emptied)."""
@@ -202,3 +230,33 @@ def test_evaluate_through_the_kernel_matches_the_plain_solver(cohort, monkeypatc
     assert roche_dopri5.roche_dopri5_per_row.launches == launches + 2
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=SCORES_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_a_dim12_forecast_takes_the_kernel_and_matches_the_plain_solver(cohort, monkeypatch):
+    """`evaluate` of the dim12 model (obs 80, latent 12) on 50 patients of its cohort (mc 50, t0 5): one launch of
+    D = 12, a `decode` span that names it, and the six scores within SCORES_RTOL of the plain solver's."""
+    from hybridode_torch.utils import logging as tracing
+
+    data = SyntheticCohort.load(DIM12_COHORT, device="cuda")
+    data.data_test = {k: v[:, :50] for k, v in data.data_test.items()}
+    data.test_size = 50
+    model = build_sim_model("hybrid", dim12_config, max_steps=256)
+    params = init_vi(torch.Generator().manual_seed(4), model, device="cuda")
+
+    def run():
+        np.random.seed(0)
+        return np.asarray(evaluate(params, model, data, 50, 5, mc_itr=50, generator=torch.Generator().manual_seed(1),
+                                   verbose=False, device="cuda"))
+
+    launches = roche_dopri5.roche_dopri5_per_row.launches
+    got = run()
+    assert roche_dopri5.roche_dopri5_per_row.launches == launches + 1
+    decode = tracing.RECORDER.last("decode")
+    assert decode.fields == {"rows": 2550, "dim": 12, "route": "dopri5"}
+    monkeypatch.setattr(decoders, "KERNEL_DEVICES", ())
+    want = run()
+    assert tracing.RECORDER.last("decode").fields["route"] == "plain"
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=SCORES_RTOL, atol=0)
+

@@ -35,7 +35,16 @@ ROUTES = {
     "lockstep": (dict(per_sample_control=False), {}, None),
     "ablate": (dict(ablate=True), {}, None),
     "neural_field": (dict(roche=False), {}, None),
-    "latent_9": (dict(latent_dim=9), {}, None),
+    "latent_9": (dict(latent_dim=9), {}, "dopri5"),
+    "latent_10": (dict(latent_dim=10), {}, "dopri5"),
+    "latent_11": (dict(latent_dim=11), {}, "dopri5"),
+    "latent_12": (dict(latent_dim=12), {}, "dopri5"),
+    "latent_13": (dict(latent_dim=13), {}, None),
+    "rk4_latent_9": (dict(method="rk4", latent_dim=9), {}, "rk4"),
+    "rk4_latent_10": (dict(method="rk4", latent_dim=10), {}, "rk4"),
+    "rk4_latent_11": (dict(method="rk4", latent_dim=11), {}, "rk4"),
+    "rk4_latent_12": (dict(method="rk4", latent_dim=12), {}, "rk4"),
+    "rk4_latent_13": (dict(method="rk4", latent_dim=13), {}, None),
     "two_doses": (dict(), dict(doses=2), None),
     "cpu_state": (dict(), dict(cpu_is_no_kernel_device=True), None),
     "euler": (dict(method="euler"), {}, None),

@@ -206,6 +206,44 @@ def test_an_evaluate_call_is_a_root_span_of_encode_decode_score_and_bootstrap(co
         assert tuple(got) == tuple(want) and np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("kernel_device", [False, True], ids=["plain", "dopri5"])
+def test_a_decode_span_names_its_route_rows_and_dim(cohort, model, kernel_device, monkeypatch):
+    """evaluate's `decode` span carries its rows and width and the route the decoder took: the plain solver on a CPU
+    state, and the per-row DOPRI5 kernel's route where the CPU stands for a kernel device."""
+    from hybridode_torch.models import decoders
+
+    if kernel_device:
+        monkeypatch.setattr(decoders, "KERNEL_DEVICES", ("cpu",))
+    params = elbo.init_vi(torch.Generator().manual_seed(0), model, device="cpu")
+    np.random.seed(0)
+    metrics.evaluate(params, model, _small_test_fold(cohort), 4, 5, mc_itr=3, generator=torch.Generator().manual_seed(1),
+                     verbose=False, device="cpu")
+    decodes = tracing.RECORDER.children(tracing.RECORDER.last("evaluate"))
+    decodes = [s for s in decodes if s.name == "decode"]
+    route = "dopri5" if kernel_device else "plain"
+    assert [s.fields for s in decodes] == [{"rows": 16, "dim": 6, "route": route}] * 2
+
+
+def test_annotate_adds_fields_to_the_innermost_open_span_of_its_name_alone():
+    with tracing.span("decode") as outer:
+        with tracing.span("inner") as inner:
+            tracing.annotate("decode", route="rk4")  # the innermost open span is not a decode
+        tracing.annotate("decode", route="plain")
+    tracing.annotate("decode", route="dopri5")  # nothing open
+    assert outer.fields == {"route": "plain"} and inner.fields == {}
+
+
+def test_a_device_counter_sums_what_is_added_on_the_device_and_on_the_host():
+    counter = tracing.DeviceCounter(("trial_steps", "accepted_steps"), ("launches", "rows"))
+    assert counter.read() == {"launches": 0, "rows": 0, "trial_steps": 0, "accepted_steps": 0}
+    t = counter.tensor(torch.device("cpu"))
+    assert counter.tensor(torch.device("cpu")) is t and t.dtype == torch.int64 and t.shape == (2,)
+    t.add_(torch.tensor([7, 3]))
+    counter.add(launches=1, rows=5)
+    counter.add(launches=1, rows=2)
+    assert counter.read() == {"launches": 2, "rows": 7, "trial_steps": 7, "accepted_steps": 3}
+
+
 def _train_cohort(cohort):
     c = copy.copy(cohort)
     c.set_val_size(8)
