@@ -24,7 +24,18 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    bit), each against the same solve in float64; its times as phase 3's;
    its registers and spills; one forecast request (`evaluate` of 50 patients, mc 50) through the kernel
    (one launch) and through the plain solver, and their scores.
-   `python3 chip_smoke.py --phase kernels` runs phases 1-3b alone.
+3c. DOPRI5 with gradients: the recording solve and the backward kernel
+   (`roche_dopri5_per_row_grad`) at the training step's shape (B=50) for
+   D=6 and D=12, forward plus backward against the plain per-row solver's
+   autograd on the card: times as phase 3's (`ms`, `device_ms`, the forward
+   and the backward alone on the device), every kernel's registers and
+   spills, the gradients against a float64 plain solve (the kernel's error at
+   most DOPRI5_ACCURACY times the plain solver's plus DOPRI5_GRAD_ATOL); and
+   the sim model's training step (loss and gradients of a batch of 50 under
+   `full_budget`) captured into a graph on the route and off it: its nodes
+   (cuGraphGetNodes, as phase 9 reads them), capture seconds and a replay's
+   device milliseconds.
+   `python3 chip_smoke.py --phase kernels` runs phases 1-3c alone.
 4. Slice: `evaluate` of the hybrid model (full width of the cohort's model:
    obs 20, LSTM hidden 40, latent 6, ml remainder 2) on the whole test fold of
    data_s123, decoding with the RK4 kernel (one launch per chunk of 50
@@ -42,10 +53,11 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    curves and between the four metrics (each must stay within TRAIN_RTOL).
    The RK4 kernel is not on this path: its launches there must stay 0 (the
    validations and the `evaluate` decode through the per-row DOPRI5 kernel,
-   the training steps through the plain solver). One training iteration is
+   the training steps through the DOPRI5 pair with gradients, whose launches
+   the line counts). One training iteration is
    timed here and
    profiled at the end (`profile` line). The `checkpoint_steps` probe: the
-   first training batch's per-patient DOPRI5 decode (batch 50, 256 trial
+   first training batch's per-patient DOPRI5 decode through the plain solver (batch 50, 256 trial
    steps) with its gradient, without and with `checkpoint_steps` (each chunk
    of 64 trial steps recomputed in the backward pass), in turns: the peak
    device memory above what was allocated before, the seconds, and the two
@@ -165,8 +177,13 @@ with CUDA activity slows every later step of the process. A `timing` line
 gives the seconds of the phases, of the profile line and of the whole
 script. The last lines are
 the `kernels` JSON (the RK4 kernel's launches on every path of the run beside
-the main path's `launches`, `evaluate_sharded` among them), the nvidia-smi line and
-{"ok": true, "device": {...}}.
+the main path's `launches`, `evaluate_sharded` among them; the DOPRI5 kernel's
+numbers; the DOPRI5 pair with gradients' numbers from phase 3c, its bound
+computed from that solve's trial and accepted steps, and its forward launches
+on every training path of phases 5-10), the nvidia-smi line and
+{"ok": true, "device": {...}}. Every path of GRAD_ROUTE_PATHS must launch the
+pair and every other training path must not, or the script fails after the
+`kernels` JSON.
 """
 
 from __future__ import annotations
@@ -272,6 +289,16 @@ DOPRI5_TOL = (1e-7, 1e-8)  # the CLI's rtol, atol
 # solver's largest (a maximum over 2,550 rows of two solvers' step sequences), each plus DOPRI5_ATOL.
 DOPRI5_ACCURACY, DOPRI5_MAX_ACCURACY, DOPRI5_ATOL = 1.25, 4.0, 1e-6
 DOPRI5_SCORES_RTOL = 1e-6  # a forecast request's six scores, kernel against plain solver
+# Phase 3c, DOPRI5 with gradients: (B, D); the gradients' error against float64 (norm of the difference over the
+# float64 gradient's), the kernel's at most DOPRI5_ACCURACY times the plain float32 solver's plus DOPRI5_GRAD_ATOL.
+DOPRI5_GRAD_CASES = [(50, 6), (50, 12)]
+DOPRI5_GRAD_ATOL = 1e-5
+# The training paths of phases 5-10 whose decode takes the DOPRI5 pair with gradients (`_kernel_route`): the sim
+# hybrid's per-patient DOPRI5 with a frozen expert, host loop, fused loop (one restart, restarts in turn) and DP, the
+# flow CLI, the expert member (D = 4). The real track, the lockstep adjoint, vmap restarts, the neural member and
+# field (the residual CLI trains one) and the NNLS ensemble must not launch it.
+GRAD_ROUTE_PATHS = ("run_simulation", "run_simulation_flow", "run_simulation_members_expert", "fused_gpu",
+                    "fused_gpu_host_loop", "fused_seq", "fused_dp")
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -476,6 +503,107 @@ def phase_dopri5(cohort, seed):
     if faults:
         raise SystemExit("\n".join(faults))
     return rows, line
+
+
+def phase_dopri5_grad(cohort, seed):
+    """Phase 3c: the per-row DOPRI5 solve with gradients (recording forward, backward) against the plain per-row
+    solver's autograd at the training step's shape, and the training step's graph on and off the route."""
+    import torch
+
+    from hybridode_torch.cli.common import build_sim_model
+    from hybridode_torch.config import DataConfig
+    from hybridode_torch.models import decoders
+    from hybridode_torch.ops import roche_dopri5
+
+    gen = torch.Generator().manual_seed(seed)
+    rows, faults = [], []
+    for B, D in DOPRI5_GRAD_CASES:
+        inp = kernel_inputs(B, D, cohort, gen)
+        del inp["n_substeps"]
+        g_out = torch.randn((T_GRID, B, D), generator=gen).to("cuda")
+
+        def grads(fn, dtype=torch.float32, **solve):
+            x = {k: (None if v is None else {n: t.to(dtype) for n, t in v.items()} if isinstance(v, dict)
+                     else v.to(dtype).clone()) for k, v in inp.items()}
+            leaves = [x["y0"].requires_grad_(), x["ml_w"].requires_grad_(), x["ml_b"].requires_grad_()]
+            ys, _ = fn(**x, **solve)
+            return torch.autograd.grad(ys, leaves, g_out.to(dtype))
+
+        kernel = lambda: grads(roche_dopri5.roche_dopri5_per_row_grad)  # noqa: E731
+        plain = lambda: grads(roche_dopri5.roche_dopri5_per_row_reference)  # noqa: E731
+        got, want = kernel(), plain()
+        exact = grads(roche_dopri5.roche_dopri5_per_row_reference, torch.float64, rtol=1e-10, atol=1e-12,
+                      max_steps=4096)
+        rel = lambda a, b: ((a.double() - b.double()).norm() / b.double().norm()).item()  # noqa: E731
+        err, err_plain = [rel(g, e) for g, e in zip(got, exact)], [rel(p, e) for p, e in zip(want, exact)]
+        ok = all(math.isfinite(e) and e <= DOPRI5_ACCURACY * p + DOPRI5_GRAD_ATOL for e, p in zip(err, err_plain))
+        _, st, record = roche_dopri5.recorded_solve(**inp)
+        # The pair's bound from this solve's steps: the forward's operations and bytes as phase 3b counts them, the
+        # record written and read back, the backward's operations, the output's gradient read and the gradients
+        # written.
+        ml, accepted = D - 4, int(st.n_accepted.sum())
+        flops = roche_dopri5.roche_dopri5_flops(st.n_steps, D) + roche_dopri5.roche_dopri5_backward_flops(
+            st.n_accepted, D, T_GRID)
+        inputs = 4 * (2 * B + 13 + D * ml + ml + T_GRID)
+        nbytes = (inputs + 4 * (B * D + T_GRID * B * D) + 9 * B + 2 * 4 * accepted * (D + 2)
+                  + inputs + 4 * (B + T_GRID * B * D + B * D + B * (D * ml + ml)))
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        row = dict(B=B, D=D, T=T_GRID, **{f"{k}_{name}": v for k in roche_dopri5.KINDS
+                                          for name, v in roche_dopri5.kernel_info(D, k).items()},
+                   err=err, err_plain=err_plain, rel_diff_plain=[rel(g, p) for g, p in zip(got, want)],
+                   accepted_max=int(st.n_accepted.max()), trials_max=int(st.n_steps.max()),
+                   ms=cuda_ms(kernel), device_ms=queued_ms(kernel),
+                   forward_device_ms=queued_ms(lambda: roche_dopri5.recorded_solve(**inp)),
+                   backward_device_ms=queued_ms(lambda: roche_dopri5.backward(
+                       inp["times"], inp["amounts"], inp["expert_params"], inp["ml_w"], inp["ml_b"], inp["ts"],
+                       record, st.n_accepted, g_out)),
+                   plain_ms=cuda_ms(plain, warmup=1, runs=PLAIN_RUNS), flops=flops, bytes=nbytes,
+                   bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   within_tol=ok)
+        print("kernel roche_dopri5_grad " + json.dumps(row), flush=True)
+        if not ok:
+            faults.append(f"roche_dopri5 with gradients at B={B} D={D}: error against float64 {err}, the plain "
+                          f"solver's {err_plain}")
+        rows.append(row)
+
+    # The training step's graph, on the route and off it (KERNEL_DEVICES emptied).
+    model = build_sim_model("hybrid", DataConfig(), max_steps=256)
+    params, eps, eps_kl, batch = _first_batch(model, seed)
+    graphs = {}
+    for route, devices in (("dopri5_grad", decoders.KERNEL_DEVICES), ("plain", ())):
+        saved, decoders.KERNEL_DEVICES = decoders.KERNEL_DEVICES, devices
+        try:
+            graphs[route] = _step_graph(params, model, batch, eps, eps_kl)
+        finally:
+            decoders.KERNEL_DEVICES = saved
+    line = dict(step_graph=graphs, loss_rel_diff=_rel_diff(graphs["dopri5_grad"].pop("loss"),
+                                                           graphs["plain"].pop("loss")))
+    print("dopri5_grad " + json.dumps(line), flush=True)
+    if faults:
+        raise SystemExit("\n".join(faults))
+    return rows, line
+
+
+def _step_graph(params, model, batch, eps, eps_kl):
+    """The sim training step's loss and gradients under `full_budget`, run once eagerly on a side stream, then
+    measured as a graph (`_graph_of`) -> its numbers and the eager loss."""
+    import torch
+
+    from hybridode_torch.inference import elbo
+    from hybridode_torch.solvers import dopri5
+
+    leaves = [p for p in params.parameters() if p.requires_grad]
+
+    def step():
+        loss = elbo.sim_loss(params, model, batch, eps=eps, eps_kl=eps_kl)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), dopri5.full_budget():
+        loss = step()[0].item()
+    torch.cuda.current_stream().wait_stream(stream)
+    return dict(_graph_of(step, stream), loss=loss)
 
 
 def dopri5_exact(inp):
@@ -725,9 +853,10 @@ def _profile_probe(params, model, batch, seed):
 
 
 def _checkpoint_probe(model, seed):
-    """The first training batch's per-patient decode with its gradient (the main path's solve), without and with
-    `checkpoint_steps`, in turns (off, on, on, off); -> the peak device memory each run allocated beyond what was
-    allocated before it, its seconds (the medians), the gradients' largest difference and the RK4 launches."""
+    """The first training batch's per-patient decode with its gradient through the plain solver (the main path's
+    solve before the DOPRI5 pair with gradients), without and with `checkpoint_steps`, in turns (off, on, on, off);
+    -> the peak device memory each run allocated beyond what was allocated before it, its seconds (the medians), the
+    gradients' largest difference and the RK4 launches."""
     import torch
 
     from hybridode_torch.fields import doses_from_actions, roche_field
@@ -778,19 +907,20 @@ def phase_train(args, probes):
     from hybridode_torch.ops import roche_rk4
 
     t0 = time.perf_counter()
-    roche_rk4.roche_rk4_trajectory.launches = 0
+    _zero_launches()
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         runs["cuda"], params, model, gpu_scores = _train_run("cuda", args.seed, os.path.join(tmp, "gpu"))
         torch.cuda.synchronize()
-        rk4_launches = roche_rk4.roche_rk4_trajectory.launches
+        rk4_launches, grad_launches = roche_rk4.roche_rk4_trajectory.launches, _grad_launches()
         runs["cpu"], _, _, cpu_scores = _train_run("cpu", args.seed, os.path.join(tmp, "cpu"))
     steps, batch = _first_batch_steps(model, args.seed)
     probes["train"] = _profile_probe(params, model, batch, args.seed)
     checkpoint = _checkpoint_probe(model, args.seed)
 
     line = dict(seconds=time.perf_counter() - t0, **_held_pair(runs, gpu_scores, cpu_scores),
-                first_batch_steps=steps, roche_rk4_launches=rk4_launches, checkpoint_steps=checkpoint)
+                first_batch_steps=steps, roche_rk4_launches=rk4_launches, roche_dopri5_grad_launches=grad_launches,
+                checkpoint_steps=checkpoint)
     print("train " + json.dumps(line), flush=True)
     _check_pair(line, TRAIN_ITERS, TRAIN_TEST_FREQ, TRAIN_RTOL)
     if rk4_launches or checkpoint["roche_rk4_launches"]:
@@ -918,7 +1048,7 @@ def phase_real(args, probes):
 
     finite = lambda v: v == v and abs(v) != math.inf  # noqa: E731
     t0 = time.perf_counter()
-    roche_rk4.roche_rk4_trajectory.launches = 0
+    _zero_launches()
     with tempfile.TemporaryDirectory() as tmp:
         cli, cli_gpu_losses, cli_cpu_losses = _real_pair(args.seed, tmp, 1, probes)
         held, _, _ = _real_pair(args.seed, tmp, REAL_HELD_STEP_DIV, probes)
@@ -941,7 +1071,7 @@ def phase_real(args, probes):
     rk4_launches = roche_rk4.roche_rk4_trajectory.launches
 
     line = dict(seconds=time.perf_counter() - t0, cli=cli, held=held, roche_rk4_launches=rk4_launches,
-                methods=others, **blends)
+                roche_dopri5_grad_launches=_grad_launches(), methods=others, **blends)
     print("real " + json.dumps(line), flush=True)
 
     for a, b in zip(cli_gpu_losses + cli["rmse_gpu"], cli_cpu_losses + cli["rmse_cpu"]):
@@ -965,26 +1095,42 @@ def phase_real(args, probes):
     return line
 
 
+def _zero_launches():
+    """Zero the launch counts of the RK4 kernel and of the DOPRI5 kernel pair with gradients."""
+    from hybridode_torch.ops import roche_dopri5, roche_rk4
+
+    roche_rk4.roche_rk4_trajectory.launches = 0
+    roche_dopri5.roche_dopri5_per_row_grad.launches = 0
+
+
+def _grad_launches() -> int:
+    """The DOPRI5 pair with gradients' forward launches since `_zero_launches`."""
+    from hybridode_torch.ops import roche_dopri5
+
+    return roche_dopri5.roche_dopri5_per_row_grad.launches
+
+
 def _counted(fn):
-    """fn() on the GPU, synchronised; -> (its result, seconds, RK4 kernel launches made in it)."""
+    """fn() on the GPU, synchronised; -> (its result, seconds, RK4 kernel launches made in it, launches of the
+    DOPRI5 pair with gradients made in it)."""
     import torch
 
     from hybridode_torch.ops import roche_rk4
 
-    roche_rk4.roche_rk4_trajectory.launches = 0
+    _zero_launches()
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t, roche_rk4.roche_rk4_trajectory.launches
+    return out, time.perf_counter() - t, roche_rk4.roche_rk4_trajectory.launches, _grad_launches()
 
 
 def _both(fn, seed):
     """fn(device) on the GPU (launches counted) and on the CPU, np.random seeded alike for the bootstrap SDs;
-    -> dict(gpu, cpu, seconds_gpu, seconds_cpu, roche_rk4_launches, max_rel_diff)."""
+    -> dict(gpu, cpu, seconds_gpu, seconds_cpu, roche_rk4_launches, roche_dopri5_grad_launches, max_rel_diff)."""
     import numpy as np
 
     np.random.seed(seed)
-    gpu, gpu_s, launches = _counted(lambda: fn("cuda"))
+    gpu, gpu_s, launches, grad_launches = _counted(lambda: fn("cuda"))
     np.random.seed(seed)
     t = time.perf_counter()
     cpu = fn("cpu")
@@ -994,6 +1140,7 @@ def _both(fn, seed):
     else:  # the dict of numpy vectors of a horizon evaluation
         gpu, cpu = ({k: [float(x) for x in v] for k, v in d.items()} for d in (gpu, cpu))
     return dict(gpu=gpu, cpu=cpu, seconds_gpu=gpu_s, seconds_cpu=cpu_s, roche_rk4_launches=launches,
+                roche_dopri5_grad_launches=grad_launches,
                 max_rel_diff=max(_rel_diff(a, b) for a, b in zip(_flat(gpu), _flat(cpu))))
 
 
@@ -1026,12 +1173,12 @@ def phase_sim_more(args, probes):
     with tempfile.TemporaryDirectory() as tmp:
         # The flow CLI (LHM-NF) on both devices: curves and metrics held, no kernel on its DOPRI5 path.
         runs = {}
-        roche_rk4.roche_rk4_trajectory.launches = 0
+        _zero_launches()
         runs["cuda"], params, model, gpu_scores = _logged_run(
             run_simulation_flow, "cuda", os.path.join(tmp, "flow_gpu"), seed=seed, eval_only=False,
             optim_config=_optim(FLOW_ITERS, FLOW_TEST_FREQ))
         torch.cuda.synchronize()
-        flow_launches = roche_rk4.roche_rk4_trajectory.launches
+        flow_launches, flow_grad_launches = roche_rk4.roche_rk4_trajectory.launches, _grad_launches()
         runs["cpu"], _, _, cpu_scores = _logged_run(run_simulation_flow, "cpu", os.path.join(tmp, "flow_cpu"),
                                                     seed=seed, eval_only=False,
                                                     optim_config=_optim(FLOW_ITERS, FLOW_TEST_FREQ))
@@ -1039,7 +1186,8 @@ def phase_sim_more(args, probes):
         train.set_train_size(1000)
         first = train.get_split("train", TRAIN_BATCH, 1 % max(1, train.train_size // TRAIN_BATCH))
         probes["flow"] = _profile_probe(params, model, first, seed)
-        line["flow"] = dict(**_held_pair(runs, gpu_scores, cpu_scores), roche_rk4_launches=flow_launches)
+        line["flow"] = dict(**_held_pair(runs, gpu_scores, cpu_scores), roche_rk4_launches=flow_launches,
+                            roche_dopri5_grad_launches=flow_grad_launches)
 
         # The flow checkpoint evaluated through the RK4 kernel (GPU) and its plain version (CPU).
         flow_rk4 = _rk4_at_eval_step(model)
@@ -1050,15 +1198,15 @@ def phase_sim_more(args, probes):
 
         # Expert and neural members (GPU), then the ensemble, residual and run_eval CLIs from their checkpoints.
         members = os.path.join(tmp, "members") + "/"
-        seconds, launches = {}, 0
+        seconds, launches, grad_launches = {}, 0, {}
         for method in ("expert", "neural"):
-            _, seconds[method], n = _counted(lambda: run_simulation.run(
+            _, seconds[method], n, grad_launches[method] = _counted(lambda: run_simulation.run(
                 seed=seed, elbo=True, eval_only=False, init_path=None, data_path=COHORT, sample=1000,
                 data_config=DataConfig(), model_method=method, path=members, optim_config=_optim(MEMBER_ITERS,
                                                                                                   MEMBER_ITERS),
                 eval_config=EvalConfig(t0=5), device="cuda"))
             launches += n
-        line["members"] = dict(seconds=seconds, roche_rk4_launches=launches)
+        line["members"] = dict(seconds=seconds, roche_rk4_launches=launches, roche_dopri5_grad_launches=grad_launches)
         line["ensemble"] = _both(lambda d: run_simulation_ensemble.run(
             seed, COHORT, 1000, DataConfig(), members, OptimConfig(shuffle=False, n_restart=5), EvalConfig(t0=5),
             device=d), seed)
@@ -1180,7 +1328,7 @@ def _lockstep_restarts(seed, tmp):
         optim = dataclasses.replace(_optim(LOCKSTEP_VMAP_ITERS, LOCKSTEP_VMAP_TEST_FREQ), n_restart=LOCKSTEP_RESTARTS)
         path = os.path.join(tmp, f"lockstep_{mode}")
         with _fused_loop(True):
-            (run, _, model, scores), _, launches = _counted(lambda: _logged_run(
+            (run, _, model, scores), _, launches, grad_launches = _counted(lambda: _logged_run(
                 run_simulation, "cuda", path, seed=seed, elbo=True, eval_only=False, init_path=None,
                 model_method="hybrid", optim_config=optim, lockstep=True, restart_mode=mode))
         _, best_itr, best = load_checkpoint(path + "/", model.model_name, device="cpu")
@@ -1190,7 +1338,8 @@ def _lockstep_restarts(seed, tmp):
         train_s = sum(d["wall"] for d in run["done"])
         out[mode] = dict(train_s=train_s, iter_s=train_s / (LOCKSTEP_RESTARTS * LOCKSTEP_VMAP_ITERS),
                          evaluate_s=run["evaluate"]["seconds"], run_s=run["seconds"], val=vals, best_loss=best,
-                         best_itr=best_itr, metrics=_scores(scores), roche_rk4_launches=launches)
+                         best_itr=best_itr, metrics=_scores(scores), roche_rk4_launches=launches,
+                         roche_dopri5_grad_launches=grad_launches)
     seq_first = [v for _, _, v in out["seq"]["val"]][::LOCKSTEP_VMAP_ITERS // LOCKSTEP_VMAP_TEST_FREQ]
     vmap_first = [next(v for r, _, v in out["vmap"]["val"] if r == lane) for lane in range(LOCKSTEP_RESTARTS)]
     out["first_val_max_rel_diff"] = max(map(_rel_diff, vmap_first, seq_first))
@@ -1269,10 +1418,10 @@ def phase_lockstep(args, probes):
 
         runs, kw = {}, dict(seed=args.seed, elbo=True, eval_only=False, init_path=None, model_method="hybrid",
                             optim_config=_optim(LOCKSTEP_ITERS, LOCKSTEP_TEST_FREQ), lockstep=True)
-        roche_rk4.roche_rk4_trajectory.launches = 0
+        _zero_launches()
         runs["cuda"], params, model, gpu_scores = _logged_run(run_simulation, "cuda", os.path.join(tmp, "gpu"), **kw)
         torch.cuda.synchronize()
-        launches = roche_rk4.roche_rk4_trajectory.launches
+        launches, grad_launches = roche_rk4.roche_rk4_trajectory.launches, _grad_launches()
         runs["cpu"], _, _, cpu_scores = _logged_run(run_simulation, "cpu", os.path.join(tmp, "cpu"), **kw)
         line["restarts"] = _lockstep_restarts(args.seed, tmp)
     first = _first_batch(model, args.seed)
@@ -1280,7 +1429,7 @@ def phase_lockstep(args, probes):
     line["adjoint_vs_backprop"] = _adjoint_vs_backprop(model, *first)
     probes["lockstep"] = _profile_probe(params, model, first[3], args.seed)
     line["train"] = dict(**_held_pair(runs, gpu_scores, cpu_scores), first_batch_steps=steps,
-                         roche_rk4_launches=launches)
+                         roche_rk4_launches=launches, roche_dopri5_grad_launches=grad_launches)
     line["seconds"] = time.perf_counter() - t0
     print("lockstep " + json.dumps(line), flush=True)
 
@@ -1333,13 +1482,18 @@ def _fused_loop(on: bool):
 
 
 def _graph_measure(run):
-    """A fused run's step captured once more, on its stream, into a graph that keeps its cudaGraph_t; -> its
-    nodes (cuGraphGetNodes), capture and instantiation seconds, one replay's device milliseconds (CUDA events)
-    and wall milliseconds (host clock to a sync), and their ratio, the device's busy share during a replay.
+    """A fused run's step captured once more, on its stream, into a graph that keeps its cudaGraph_t; -> as
+    `_graph_of`. The run's own graphs are instantiated as they are captured and keep nothing to count. The replays
+    step the finished run's parameters, which nothing reads any more."""
+    return _graph_of(run.step.fn, run.step.stream)
 
-    The run's own graphs are instantiated as they are captured and keep nothing to count. The replays step the
-    finished run's parameters, which nothing reads any more. (A torch.profiler trace of a replay ended the
-    process with a segmentation fault on the H100, so none is taken.)
+
+def _graph_of(fn, stream):
+    """`fn` captured under `full_budget` on `stream` (which has run it eagerly before) into a graph that keeps its
+    cudaGraph_t; -> its nodes (cuGraphGetNodes), capture and instantiation seconds, one replay's device milliseconds
+    (CUDA events) and wall milliseconds (host clock to a sync), and their ratio, the device's busy share during a
+    replay. (A torch.profiler trace of a replay ended the process with a segmentation fault on the H100, so none is
+    taken.)
     """
     import ctypes
     import gc
@@ -1353,8 +1507,8 @@ def _graph_measure(run):
     gc.disable()
     try:
         t = time.perf_counter()
-        with torch.cuda.graph(graph, stream=run.step.stream), dopri5.full_budget():
-            run.step.fn()
+        with torch.cuda.graph(graph, stream=stream), dopri5.full_budget():
+            fn()
         capture_s = time.perf_counter() - t
     finally:
         gc.enable()
@@ -1392,26 +1546,27 @@ def phase_fused(args):
     from hybridode_torch.inference import fused, load_checkpoint
 
     t0, seed = time.perf_counter(), args.seed
-    line, faults, launches = {}, [], {}
+    line, faults, launches, grad_launches = {}, [], {}, {}
 
     def sim(device, tmp, on, **kw):
         kw = dict(dict(niters=FUSED_ITERS, test_freq=FUSED_TEST_FREQ, n_restart=1), **kw)
         optim = OptimConfig(shuffle=False, niters=kw.pop("niters"), test_freq=kw.pop("test_freq"), early_stop=10,
                             n_restart=kw.pop("n_restart"), batch_size=TRAIN_BATCH)
         with _fused_loop(on):
-            (run, params, model, scores), _, n = _counted(lambda: _logged_run(
+            (run, params, model, scores), _, n, n_grad = _counted(lambda: _logged_run(
                 run_simulation, device, tmp, seed=seed, elbo=True, eval_only=False, init_path=None,
                 model_method="hybrid", optim_config=optim, **kw))
         run["scores"] = _scores(scores)
-        return run, model, n
+        return run, model, (n, n_grad)
 
     with tempfile.TemporaryDirectory() as tmp:
         runs = {}
-        runs["gpu_fused"], model, launches["gpu"] = sim("cuda", os.path.join(tmp, "gpu_fused"), True)
+        runs["gpu_fused"], model, (launches["gpu"], grad_launches["gpu"]) = sim("cuda", os.path.join(tmp, "gpu_fused"),
+                                                                               True)
         line["step_graph"] = _graph_measure(fused._LAST_RUN)
         runs["cpu_fused"], _, _ = sim("cpu", os.path.join(tmp, "cpu_fused"), True, niters=FUSED_TEST_FREQ)
-        runs["gpu_host"], _, launches["gpu_host_loop"] = sim("cuda", os.path.join(tmp, "gpu_host"), False,
-                                                             niters=FUSED_TEST_FREQ)
+        runs["gpu_host"], _, (launches["gpu_host_loop"], grad_launches["gpu_host_loop"]) = sim(
+            "cuda", os.path.join(tmp, "gpu_host"), False, niters=FUSED_TEST_FREQ)
         for name, run in runs.items():
             line[name] = dict(iter_s=_steady_iter_s(run, FUSED_TEST_FREQ), window_s=run["window_s"],
                               captures=run["captures"], train_s=run["done"][-1]["wall"],
@@ -1432,7 +1587,7 @@ def phase_fused(args):
 
         # The real hybrid, captured, against the CPU at two steps an hour.
         with _fused_loop(True):
-            (real_gpu, _, _), _, launches["real"] = _counted(lambda: _real_run(
+            (real_gpu, _, _), _, launches["real"], grad_launches["real"] = _counted(lambda: _real_run(
                 "cuda", seed, os.path.join(tmp, "real_gpu"), ode_step_div=REAL_HELD_STEP_DIV))
             line["real_step_graph"] = _graph_measure(fused._LAST_RUN)
             real_cpu, _, _ = _real_run("cpu", seed, os.path.join(tmp, "real_cpu"), ode_step_div=REAL_HELD_STEP_DIV)
@@ -1448,8 +1603,9 @@ def phase_fused(args):
         batched = {}
         for mode in ("vmap", "seq"):
             path = os.path.join(tmp, mode)
-            run, model, launches[mode] = sim("cuda", path, True, niters=VMAP_ITERS, test_freq=VMAP_TEST_FREQ,
-                                             n_restart=FUSED_RESTARTS, restart_mode=mode)
+            run, model, (launches[mode], grad_launches[mode]) = sim(
+                "cuda", path, True, niters=VMAP_ITERS, test_freq=VMAP_TEST_FREQ, n_restart=FUSED_RESTARTS,
+                restart_mode=mode)
             _, best_itr, best = load_checkpoint(path + "/", model.model_name, device="cpu")
             batched[mode] = dict(train_s=sum(d["wall"] for d in run["done"]), window_s=run["window_s"],
                                  captures=run["captures"], best_loss=best, best_itr=best_itr, run_s=run["seconds"])
@@ -1458,6 +1614,7 @@ def phase_fused(args):
         batched["steady_window_ratio"] = batched["vmap"]["window_s"][-1] / batched["seq"]["window_s"][-1]
         line["vmap"] = batched
     line["roche_rk4_launches"] = launches
+    line["roche_dopri5_grad_launches"] = grad_launches
     line["seconds"] = time.perf_counter() - t0
     print("fused " + json.dumps(line), flush=True)
 
@@ -1540,7 +1697,7 @@ def phase_parallel(args, fused_line):
             params = init_vi(gen_init, model, device="cuda")
             events = os.path.join(tmp, "dp.jsonl")
             calls = all_reduce_sum.calls
-            (_, best, _), train_s, launches = _counted(lambda: variational_training_loop(
+            (_, best, _), train_s, launches, grad_launches = _counted(lambda: variational_training_loop(
                 niters=FUSED_ITERS, data_generator=cohort, model=model, params=params, batch_size=TRAIN_BATCH,
                 lr=0.01, test_freq=FUSED_TEST_FREQ, generator=gen_train, path=os.path.join(tmp, "dp_"),
                 early_stop=10, shuffle=False, val_criterion="forecast", val_t0=5, events_path=events,
@@ -1560,17 +1717,17 @@ def phase_parallel(args, fused_line):
                 first_val_rel_diff=_rel_diff(curve[0][1], ref["curve"][0][1]) if curve and ref["curve"] else math.inf,
                 curve_max_rel_diff=_curve_rel_diff(curve, ref["curve"]),
                 iter_s_non_dp=ref["iter_s"], iter_s_ratio=_steady_iter_s(run, FUSED_TEST_FREQ) / ref["iter_s"],
-                roche_rk4_launches=launches)
+                roche_rk4_launches=launches, roche_dopri5_grad_launches=grad_launches)
 
             # The 2-D evaluation on a 1 x 1 mesh of the hybrid at RK4, against `evaluate` from one generator seed.
             model_rk4 = _rk4_at_eval_step(model)
             params_rk4 = init_vi(torch.Generator().manual_seed(seed), model_rk4, device="cuda")
             mesh = make_mesh_2d(1, 1)
             evaluate(params_rk4, model_rk4, cohort, TRAIN_BATCH, 5, verbose=False, device="cuda")  # the kernel's load
-            sharded, sharded_s, sharded_launches = _counted(lambda: evaluate_sharded(
+            sharded, sharded_s, sharded_launches, _ = _counted(lambda: evaluate_sharded(
                 params_rk4, model_rk4, cohort, TRAIN_BATCH, 5, mesh, generator=torch.Generator().manual_seed(seed),
                 verbose=False, device="cuda"))
-            plain, plain_s, plain_launches = _counted(lambda: evaluate(
+            plain, plain_s, plain_launches, _ = _counted(lambda: evaluate(
                 params_rk4, model_rk4, cohort, TRAIN_BATCH, 5, generator=torch.Generator().manual_seed(seed),
                 verbose=False, device="cuda"))
             line["evaluate_sharded"] = dict(
@@ -1645,12 +1802,21 @@ def phase_fused_apart(args):
     return lines["fused"], lines["parallel"]
 
 
+def grad_route_faults(launches_by_path: dict) -> list:
+    """The training paths whose launches of the DOPRI5 pair with gradients contradict the route: each path of
+    GRAD_ROUTE_PATHS must launch it, every other path must not."""
+    return [f"{path}: {n} launches of roche_dopri5_grad, expected {'some' if path in GRAD_ROUTE_PATHS else 0}"
+            for path, n in launches_by_path.items() if (n > 0) != (path in GRAD_ROUTE_PATHS)]
+
+
 def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line, dopri5_rows,
-                 dopri5_line) -> dict:
+                 dopri5_line, grad_rows) -> dict:
     """The `kernels` JSON: the RK4 kernel's numbers at evaluate's shape (B=2550, the one launch of each chunk) and
     its launches on every path of the run, the main path's beside the others; the per-row DOPRI5 kernel's numbers at
-    evaluate's shape and its launches a forecast request (phase 3b)."""
-    main_row, dopri5_row = rows[0], dopri5_rows[0]
+    evaluate's shape and its launches a forecast request (phase 3b); the DOPRI5 pair with gradients' numbers at the
+    training step's shape (B=50, D=6, phase 3c) and its forward launches on every training path of the run."""
+    main_row, dopri5_row, grad_row = rows[0], dopri5_rows[0], grad_rows[0]
+    grad = "roche_dopri5_grad_launches"
     return {"kernels": [dict(
         name="roche_rk4", route="cuda", source="hybridode_torch/ops/csrc/roche_rk4.cu",
         replaces="hybridode/ops/pallas/roche_kernel.py:151", launches=launches,
@@ -1682,6 +1848,19 @@ def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parall
         max_err=max(r["err"] for r in dopri5_rows), ms=dopri5_row["ms"], device_ms=dopri5_row["device_ms"],
         plain_ms=dopri5_row["plain_ms"], bound_ms=dopri5_row["bound_ms"], bound_by=dopri5_row["bound_by"],
         library_ms=None,  # no single PyTorch call computes this solve
+    ), dict(
+        name="roche_dopri5_grad", route="cuda", source="hybridode_torch/ops/csrc/roche_dopri5.cu", replaces=None,
+        launches_by_path=dict(
+            run_simulation=train[grad], run_real=real[grad], run_simulation_flow=more["flow"][grad],
+            **{f"run_simulation_members_{k}": v for k, v in more["members"][grad].items()},
+            run_simulation_ensemble=more["ensemble"][grad], run_simulation_residual=more["residual"][grad],
+            run_eval=more["run_eval"][grad], run_simulation_lockstep=lockstep["train"][grad],
+            lockstep_vmap=lockstep["restarts"]["vmap"][grad], lockstep_seq=lockstep["restarts"]["seq"][grad],
+            **{f"fused_{k}": v for k, v in fused_line[grad].items()}, fused_dp=parallel_line["dp_fused"][grad]),
+        max_err=max(e for r in grad_rows for e in r["err"]), ms=grad_row["ms"], device_ms=grad_row["device_ms"],
+        forward_device_ms=grad_row["forward_device_ms"], backward_device_ms=grad_row["backward_device_ms"],
+        plain_ms=grad_row["plain_ms"], bound_ms=grad_row["bound_ms"], bound_by=grad_row["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this solve or its backward
     )]}
 
 
@@ -1691,7 +1870,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=["fused", "kernels"], default=None,
                         help="fused: run only phases 9 and 10 and print their lines (the whole script runs them so, "
-                             "in a process of their own); kernels: run only phases 1-3 and 3b, the kernels")
+                             "in a process of their own); kernels: run only phases 1-3, 3b and 3c, the kernels")
     args = parser.parse_args(argv)
 
     import torch
@@ -1726,6 +1905,7 @@ def main(argv=None) -> int:
     cohort = SyntheticCohort.load(COHORT, device="cuda")
     rows = phase_kernels(cohort, args.seed)
     dopri5_rows, dopri5_line = phase_dopri5(cohort, args.seed)
+    grad_rows, _ = phase_dopri5_grad(cohort, args.seed)
     if args.phase == "kernels":
         print(smi, flush=True)
         return 0
@@ -1742,10 +1922,13 @@ def main(argv=None) -> int:
     total_s = time.perf_counter() - start
     print("timing " + json.dumps(dict(phases_s=phases_s, profile_s=total_s - phases_s, total_s=total_s)), flush=True)
 
-    print(json.dumps(kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line, dopri5_rows,
-                                  dopri5_line)),
-          flush=True)
+    kernels = kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line, dopri5_rows,
+                           dopri5_line, grad_rows)
+    print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
+    faults = grad_route_faults(kernels["kernels"][2]["launches_by_path"])
+    if faults:
+        raise SystemExit("; ".join(faults))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -16,8 +16,10 @@ The simulation decoder has four solves:
 * DOPRI5 with per-patient step control (`per_sample_control=True`, the CLI's
   default for the Roche field): one `odeint_dopri5(per_row=True)` over the
   batch, the counterpart of JAX's `vmap` of one solve per patient. A decode
-  of the Roche field that needs no gradient runs the same solve as the CUDA
-  kernel `roche_dopri5_per_row`, one launch (below).
+  of the Roche field runs the same solve as the CUDA kernel
+  `roche_dopri5_per_row`, one launch, where it needs no gradient, and as
+  `roche_dopri5_per_row_grad`, one launch forward and one backward, where it
+  needs one for the state or the remainder (below).
 * DOPRI5 on the adjoint solver (`use_adjoint=True`; the CLI's `--step_control
   lockstep` for the Roche field): `odeint_dopri5_adjoint` with one controller
   for the whole `(B, D)` batch, or per row with `per_sample_control`, its
@@ -31,13 +33,15 @@ The simulation decoder has four solves:
 
 `_kernel_route` picks a kernel from what the decoder observes, with no
 switch: the Roche field without ablation, 4 <= `latent_dim` <= `MAX_DIM`
-(12), one dose per patient, a state on a device of `KERNEL_DEVICES`, no
-gradient needed and no `torch.func` transform; then `roche_dopri5_per_row`
-for per-patient DOPRI5 off the adjoint solver, `roche_rk4_trajectory` for
-RK4. Training steps, `--restart_mode vmap`, the lockstep adjoint, the
-ablation and the neural field, and every CPU state keep the plain solvers.
-A decode names its route ("dopri5", "rk4" or "plain") on the `decode` span
-its caller has open.
+(12), one dose per patient, a state on a device of `KERNEL_DEVICES` and no
+`torch.func` transform; then, with no gradient needed,
+`roche_dopri5_per_row` for per-patient DOPRI5 off the adjoint solver and
+`roche_rk4_trajectory` for RK4; with one needed, `roche_dopri5_per_row_grad`
+for per-patient DOPRI5 off the adjoint solver whose expert constants are
+frozen. `--restart_mode vmap`, the lockstep adjoint, RK4 with gradients,
+the trained expert (`train_expert`), the ablation and the neural field, and
+every CPU state keep the plain solvers. A decode names its route ("dopri5",
+"dopri5_grad", "rk4" or "plain") on the `decode` span its caller has open.
 
 A decode copies nothing from the host: each spec's grid is put on a device
 once (`device_grid`), so a training step can be captured into a CUDA graph.
@@ -54,6 +58,7 @@ import torch
 from .. import resolve_device
 from ..config import DTYPE, RocheConfig
 from ..fields import (
+    FROZEN_KEYS,
     CumDoseContext,
     doses_from_actions,
     init_neural_field,
@@ -67,7 +72,7 @@ from ..fields import (
     roche_field,
     roche_real_field,
 )
-from ..ops.roche_dopri5 import roche_dopri5_per_row
+from ..ops.roche_dopri5 import roche_dopri5_per_row, roche_dopri5_per_row_grad
 from ..ops.roche_rk4 import MAX_DIM, roche_rk4_trajectory
 from ..solvers import FIXED_METHODS, odeint, odeint_dopri5, odeint_dopri5_adjoint
 from ..utils.logging import annotate
@@ -133,20 +138,26 @@ KERNEL_DEVICES = ("cuda",)  # the device types the kernels run on
 
 
 def _kernel_route(spec: SimDecoderSpec, params, init, ctx) -> Optional[str]:
-    """The kernel that computes the decode, "dopri5" or "rk4", or None: the kernels' field on a state of a
-    kernel device that needs no gradient and is not inside a `torch.func` transform (the kernels read raw
-    device pointers)."""
+    """The kernel that computes the decode, or None: the kernels' field on a state of a kernel device, not inside
+    a `torch.func` transform (the kernels read raw device pointers). "dopri5" or "rk4" where no gradient is needed;
+    "dopri5_grad" for a per-patient DOPRI5 decode that needs one and whose frozen leaves (the expert constants)
+    need none."""
     if spec.method == "dopri5" and spec.per_sample_control and not spec.use_adjoint:
         route = "dopri5"
     elif spec.method == "rk4":
         route = "rk4"
     else:
         return None
-    needs_grad = torch.is_grad_enabled() and (init.requires_grad or any(p.requires_grad for p in params.parameters()))
     takes = (spec.roche and not spec.ablate and 4 <= spec.latent_dim <= MAX_DIM and ctx.times.shape[-1] == 1
-             and init.device.type in KERNEL_DEVICES and not needs_grad
-             and not torch._C._functorch.is_functorch_wrapped_tensor(init))
-    return route if takes else None
+             and init.device.type in KERNEL_DEVICES and not torch._C._functorch.is_functorch_wrapped_tensor(init)
+             and torch._C._functorch.maybe_current_level() is None)
+    if not takes:
+        return None
+    if not torch.is_grad_enabled() or not (init.requires_grad or any(p.requires_grad for p in params.parameters())):
+        return route
+    frozen = [params[key] for key in FROZEN_KEYS if key in params]
+    frozen = [p for f in frozen for p in (f.parameters() if isinstance(f, torch.nn.Module) else [f])]
+    return "dopri5_grad" if route == "dopri5" and not any(p.requires_grad for p in frozen) else None
 
 
 def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
@@ -163,6 +174,8 @@ def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
                        None if ml is None else ml["w"], None if ml is None else ml["b"], ts)
     if route == "dopri5":
         h, _ = roche_dopri5_per_row(*kernel_args, rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+    elif route == "dopri5_grad":
+        h, _ = roche_dopri5_per_row_grad(*kernel_args, rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
     elif route == "rk4":
         h = roche_rk4_trajectory(*kernel_args, spec.n_substeps)
     elif spec.method == "dopri5" and spec.use_adjoint:

@@ -65,7 +65,7 @@ def build_libraries(baseline: str | None) -> dict[str, str]:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", out, os.path.abspath(baseline)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    paths = {"kernel": build.build_all(("roche_rk4",))["roche_rk4"].path}
+    paths = {"kernel": build.build_all((("roche_rk4", None),))["roche_rk4"].path}
     if proc is not None:
         log, _ = proc.communicate()
         if proc.returncode != 0:

@@ -101,20 +101,28 @@ def test_phase_10_reads_the_dryrun_ok_lines():
 def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
     """The `kernels` JSON carries phase 10's paths beside the others: `evaluate_sharded` (4 launches, one a chunk)
     and the DP fused training (0); and phases 5 and 8's new paths: the native generator, the lockstep restarts
-    batched and in turn, the checkpoint_steps probe (0 each); and, from phase 3b, the per-row DOPRI5 kernel's
-    numbers at evaluate's shape and its one launch a forecast request."""
+    batched and in turn, the checkpoint_steps probe (0 each); from phase 3b, the per-row DOPRI5 kernel's
+    numbers at evaluate's shape and its one launch a forecast request; and from phase 3c and the training paths,
+    the DOPRI5 pair with gradients' numbers and its launches on every training path, which `grad_route_faults`
+    holds to the route."""
     row = dict(max_abs_err=1e-6, ms=0.19, device_ms=0.06, plain_ms=260.0, bound_ms=0.0014, bound_by="operations")
-    rk4 = dict(roche_rk4_launches=4)
-    none = dict(roche_rk4_launches=0)
-    more = dict(evaluate_horizon=rk4, evaluate_ensemble_horizon=rk4, flow_evaluate=rk4, flow=none, members=none,
-                ensemble=none, residual=none, run_eval=none)
-    line = chip_smoke.kernels_line([row], 4, dict(none, checkpoint_steps=none), none, more,
+    grad_row = dict(row, err=[2e-6, 3e-6, 1e-6], forward_device_ms=0.03, backward_device_ms=0.02)
+    on, off = 3, 0
+    rk4 = dict(roche_rk4_launches=4, roche_dopri5_grad_launches=off)
+    none = dict(roche_rk4_launches=0, roche_dopri5_grad_launches=off)
+    trained = dict(none, roche_dopri5_grad_launches=on)
+    more = dict(evaluate_horizon=rk4, evaluate_ensemble_horizon=rk4, flow_evaluate=rk4, flow=trained,
+                members=dict(none, roche_dopri5_grad_launches=dict(expert=on, neural=off)), ensemble=none,
+                residual=none, run_eval=none)
+    fused = dict(roche_rk4_launches=dict(gpu=0, vmap=0),
+                 roche_dopri5_grad_launches=dict(gpu=on, gpu_host_loop=on, real=off, vmap=off, seq=on))
+    line = chip_smoke.kernels_line([row], 4, dict(trained, checkpoint_steps=none), none, more,
                                    dict(train=none, create_data=dict(none, native=none),
                                         restarts=dict(vmap=none, seq=none)),
-                                   dict(roche_rk4_launches=dict(gpu=0, vmap=0)),
-                                   dict(evaluate_sharded=rk4, dp_fused=none),
-                                   [dict(row, err=2e-4), dict(row, err=3e-4)], dict(launches_per_request=1.0))
-    k, dopri5 = line["kernels"]
+                                   fused, dict(evaluate_sharded=rk4, dp_fused=trained),
+                                   [dict(row, err=2e-4), dict(row, err=3e-4)], dict(launches_per_request=1.0),
+                                   [grad_row, dict(grad_row, err=[4e-6, 0.0, 0.0])])
+    k, dopri5, grad = line["kernels"]
     paths = k["launches_by_path"]
     assert k["launches"] == 4 and paths["evaluate_sharded"] == 4
     assert paths["fused_dp"] == 0 and paths["fused_vmap"] == 0
@@ -124,6 +132,11 @@ def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
                       "bound_by", "library_ms"}
     assert dopri5["name"] == "roche_dopri5" and dopri5["launches_per_forecast_request"] == 1.0
     assert dopri5["max_err"] == 3e-4 and dopri5["device_ms"] == 0.06
+    assert grad["name"] == "roche_dopri5_grad" and grad["max_err"] == 4e-6 and grad["bound_ms"] == 0.0014
+    assert {p for p, n in grad["launches_by_path"].items() if n} == set(chip_smoke.GRAD_ROUTE_PATHS)
+    assert chip_smoke.grad_route_faults(grad["launches_by_path"]) == []
+    faults = chip_smoke.grad_route_faults(dict(grad["launches_by_path"], run_simulation=0, run_simulation_lockstep=2))
+    assert [f.split(":")[0] for f in faults] == ["run_simulation", "run_simulation_lockstep"]
 
 
 def test_phase_8_holds_the_native_generator_against_data_s123():

@@ -6,7 +6,8 @@ device (`KERNEL_DEVICES`) to show where the route is taken, and keep the CPU
 out of it to show that a CPU state never takes it. Taken on the CPU, the
 route reaches `roche_dopri5_per_row`'s plain version, so the decode it gives
 is the plain solver's. The kernel itself is held to the plain solver on the
-card (tests/test_torch_cuda_dopri5_kernel.py).
+card (tests/test_torch_cuda_dopri5_kernel.py, and with gradients
+tests/test_torch_cuda_dopri5_grad_kernel.py).
 """
 
 import pytest
@@ -28,8 +29,8 @@ ROUTES = {
     "latent_8": (dict(latent_dim=8), {}, "dopri5"),
     "grad_mode_on_nothing_requires_grad": (dict(), dict(grad=True, frozen=True), "dopri5"),
     "rk4": (dict(method="rk4"), {}, "rk4"),
-    "grad": (dict(), dict(grad=True), None),
-    "init_requires_grad": (dict(), dict(grad=True, frozen=True, init_grad=True), None),
+    "grad": (dict(), dict(grad=True), "dopri5_grad"),
+    "init_requires_grad": (dict(), dict(grad=True, frozen=True, init_grad=True), "dopri5_grad"),
     "vmap": (dict(), dict(vmap=True), None),
     "use_adjoint": (dict(use_adjoint=True), {}, None),
     "lockstep": (dict(per_sample_control=False), {}, None),
@@ -48,6 +49,20 @@ ROUTES = {
     "two_doses": (dict(), dict(doses=2), None),
     "cpu_state": (dict(), dict(cpu_is_no_kernel_device=True), None),
     "euler": (dict(method="euler"), {}, None),
+    "grad_expert_only": (dict(latent_dim=4), dict(grad=True, frozen=True, init_grad=True), "dopri5_grad"),
+    "grad_latent_8": (dict(latent_dim=8), dict(grad=True), "dopri5_grad"),
+    "grad_latent_12": (dict(latent_dim=12), dict(grad=True), "dopri5_grad"),
+    "grad_latent_13": (dict(latent_dim=13), dict(grad=True), None),
+    "grad_train_expert": (dict(), dict(grad=True, train_expert=True), None),
+    "grad_ablate": (dict(ablate=True), dict(grad=True), None),
+    "grad_vmap": (dict(), dict(grad=True, vmap=True), None),
+    "grad_func_grad": (dict(), dict(grad=True, func_grad=True), None),
+    "grad_use_adjoint": (dict(use_adjoint=True), dict(grad=True), None),
+    "grad_lockstep": (dict(per_sample_control=False), dict(grad=True), None),
+    "grad_rk4": (dict(method="rk4"), dict(grad=True), None),
+    "grad_two_doses": (dict(), dict(grad=True, doses=2), None),
+    "grad_neural_field": (dict(roche=False), dict(grad=True), None),
+    "grad_cpu_state": (dict(), dict(grad=True, cpu_is_no_kernel_device=True), None),
 }
 
 
@@ -72,6 +87,8 @@ def test_kernel_route_is_taken_only_where_the_kernel_computes_the_decode(name, m
     params = _field(spec)
     if how.get("frozen"):
         params.requires_grad_(False)
+    if how.get("train_expert"):
+        params["expert"].requires_grad_(True)
     init = torch.rand(B, spec.latent_dim, generator=torch.Generator().manual_seed(1))
     if how.get("init_grad"):
         init.requires_grad_(True)
@@ -85,6 +102,15 @@ def test_kernel_route_is_taken_only_where_the_kernel_computes_the_decode(name, m
                 return y
 
             torch.func.vmap(lane)(init[None])
+            (got,) = routes
+        elif how.get("func_grad"):
+            routes = []
+
+            def loss(y):
+                routes.append(decoders._kernel_route(spec, params, y, ctx))
+                return y.sum()
+
+            torch.func.grad(loss)(init)
             (got,) = routes
         else:
             got = decoders._kernel_route(spec, params, init, ctx)
@@ -115,6 +141,44 @@ def test_the_kernel_route_decodes_what_the_plain_solver_decodes(monkeypatch):
     assert calls == [dict(rtol=1e-6, atol=1e-7, max_steps=128)]
     assert torch.equal(got_h, want_h) and torch.equal(got_x, want_x)
     assert torch.isfinite(got_h).all()
+
+
+@pytest.mark.parametrize("latent_dim", [4, 6])
+def test_the_grad_route_decodes_and_differentiates_what_the_plain_solver_does(latent_dim, monkeypatch):
+    """With gradients needed, `sim_decoder_apply` takes the "dopri5_grad" route (on the CPU: the grad wrapper's plain
+    version, the plain solver with autograd), calls it once with the spec's tolerances, names it on the `decode` span,
+    and gives the plain per-row solver's decode and gradients for the initial state and every trained leaf."""
+    from hybridode_torch.utils import logging as tracing
+
+    gen = torch.Generator().manual_seed(5)
+    spec = SPEC._replace(latent_dim=latent_dim, rtol=1e-6, atol=1e-7, max_steps=128)
+    params = {"ode": init_roche_field(gen, latent_dim, device="cpu"),
+              "output": {"w": torch.randn(latent_dim, 20, generator=gen) * 0.3, "b": torch.zeros(20)}}
+    init = (torch.exp(0.3 * torch.randn(B, latent_dim, generator=gen)) / 10).requires_grad_(True)
+    actions = torch.zeros(15, B, 1)
+    actions[torch.tensor([0, 2, 4, 7, 9]), torch.arange(B), 0] = torch.tensor([1.0, 0.5, 2.0, 0.0, 1.5])
+    leaves = [init] + [p for p in params["ode"].parameters() if p.requires_grad]
+    calls = []
+
+    def wrapper(*args, **kw):
+        calls.append(kw)
+        return roche_dopri5.roche_dopri5_per_row_grad(*args, **kw)
+
+    def decode():
+        with tracing.span("decode"):
+            x, h = decoders.sim_decoder_apply(params, spec, init, actions)
+        return x, h, torch.autograd.grad(x.square().sum(), leaves), tracing.RECORDER.last("decode").fields["route"]
+
+    want_x, want_h, want_g, want_route = decode()
+    monkeypatch.setattr(decoders, "KERNEL_DEVICES", ("cpu",))
+    monkeypatch.setattr(decoders, "roche_dopri5_per_row_grad", wrapper)
+    got_x, got_h, got_g, got_route = decode()
+    assert (want_route, got_route) == ("plain", "dopri5_grad")
+    assert calls == [dict(rtol=1e-6, atol=1e-7, max_steps=128)]
+    assert torch.equal(got_h, want_h) and torch.equal(got_x, want_x) and torch.isfinite(got_h).all()
+    assert len(got_g) == len(leaves) == (1 if latent_dim == 4 else 3)
+    for got, want in zip(got_g, want_g):
+        assert torch.equal(got, want) and bool(got.abs().sum() > 0)
 
 
 @pytest.mark.parametrize("max_steps", [1, 64, 65])
@@ -149,3 +213,15 @@ def test_a_changed_header_changes_the_build_target(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k;\n')
     assert build._target("k")[1] not in (first, second)
+
+
+def test_a_per_width_source_builds_one_library_a_width():
+    """`roche_dopri5` compiles once a state width, its macro set to the width: each width is a library of its own,
+    named by it; `roche_rk4` compiles once, with the plain flags."""
+    libs = [build._target("roche_dopri5", D)[1] for D in build.WIDTHS]
+    assert len(set(libs)) == len(build.WIDTHS) == 9
+    assert all(f"roche_dopri5_d{D}-" in lib for D, lib in zip(build.WIDTHS, libs))
+    assert "-DROCHE_DOPRI5_DIM=6" in build._target("roche_dopri5", 6)[2]
+    assert build._target("roche_rk4")[2] == build.NVCC_FLAGS
+    assert build.TARGETS == (("roche_rk4", None), *(("roche_dopri5", D) for D in build.WIDTHS))
+
