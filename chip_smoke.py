@@ -293,7 +293,7 @@ DOPRI5_SCORES_RTOL = 1e-6  # a forecast request's six scores, kernel against pla
 # float64 gradient's), the kernel's at most DOPRI5_ACCURACY times the plain float32 solver's plus DOPRI5_GRAD_ATOL.
 DOPRI5_GRAD_CASES = [(50, 6), (50, 12)]
 DOPRI5_GRAD_ATOL = 1e-5
-# The training paths of phases 5-10 whose decode takes the DOPRI5 pair with gradients (`_kernel_route`): the sim
+# The training paths of phases 5-10 whose decode takes the DOPRI5 pair with gradients (`roche_kernel`): the sim
 # hybrid's per-patient DOPRI5 with a frozen expert, host loop, fused loop (one restart, restarts in turn) and DP, the
 # flow CLI, the expert member (D = 4). The real track, the lockstep adjoint, vmap restarts, the neural member and
 # field (the residual CLI trains one) and the NNLS ensemble must not launch it.
@@ -412,8 +412,7 @@ def phase_dopri5(cohort, seed):
     from hybridode_torch.eval import evaluate
     from hybridode_torch.fields import NO_DOSE_TIME
     from hybridode_torch.inference import init_vi
-    from hybridode_torch.models import decoders
-    from hybridode_torch.ops import roche_dopri5
+    from hybridode_torch.ops import contract, roche_dopri5
 
     gen = torch.Generator().manual_seed(seed)
     rows, faults = [], []
@@ -487,11 +486,11 @@ def phase_dopri5(cohort, seed):
     roche_dopri5.roche_dopri5_per_row.launches = 0
     kernel = [request() for _ in range(EVAL_REPEATS)]
     launches = roche_dopri5.roche_dopri5_per_row.launches
-    devices, decoders.KERNEL_DEVICES = decoders.KERNEL_DEVICES, ()
+    devices, contract.KERNEL_DEVICES = contract.KERNEL_DEVICES, ()
     try:
         plain = [request() for _ in range(2)]
     finally:
-        decoders.KERNEL_DEVICES = devices
+        contract.KERNEL_DEVICES = devices
     gap = max(_rel_diff(a, b) for a, b in zip(kernel[0][0], plain[0][0]))
     line = dict(request_s=[k[1] for k in kernel], request_s_plain=[p[1] for p in plain],
                 launches_per_request=launches / EVAL_REPEATS, scores_max_rel_diff=gap)
@@ -512,8 +511,7 @@ def phase_dopri5_grad(cohort, seed):
 
     from hybridode_torch.cli.common import build_sim_model
     from hybridode_torch.config import DataConfig
-    from hybridode_torch.models import decoders
-    from hybridode_torch.ops import roche_dopri5
+    from hybridode_torch.ops import contract, roche_dopri5
 
     gen = torch.Generator().manual_seed(seed)
     rows, faults = [], []
@@ -570,12 +568,12 @@ def phase_dopri5_grad(cohort, seed):
     model = build_sim_model("hybrid", DataConfig(), max_steps=256)
     params, eps, eps_kl, batch = _first_batch(model, seed)
     graphs = {}
-    for route, devices in (("dopri5_grad", decoders.KERNEL_DEVICES), ("plain", ())):
-        saved, decoders.KERNEL_DEVICES = decoders.KERNEL_DEVICES, devices
+    for route, devices in (("dopri5_grad", contract.KERNEL_DEVICES), ("plain", ())):
+        saved, contract.KERNEL_DEVICES = contract.KERNEL_DEVICES, devices
         try:
             graphs[route] = _step_graph(params, model, batch, eps, eps_kl)
         finally:
-            decoders.KERNEL_DEVICES = saved
+            contract.KERNEL_DEVICES = saved
     line = dict(step_graph=graphs, loss_rel_diff=_rel_diff(graphs["dopri5_grad"].pop("loss"),
                                                            graphs["plain"].pop("loss")))
     print("dopri5_grad " + json.dumps(line), flush=True)
@@ -1897,7 +1895,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     built = build.build_all()
     ptxas = [ln.strip() for b in built.values() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
-    info = {name: {D: mod.kernel_info(D) for D in range(4, roche_rk4.MAX_DIM + 1)}  # registers, spills by D
+    info = {name: {D: mod.kernel_info(D) for D in build.WIDTHS}  # registers, spills by D
             for name, mod in (("roche_rk4", roche_rk4), ("roche_dopri5", roche_dopri5))}
     print("build " + json.dumps(dict(seconds=time.perf_counter() - t, kernels=sorted(built), ptxas=ptxas, **info)),
           flush=True)

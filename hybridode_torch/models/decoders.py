@@ -25,21 +25,17 @@ The simulation decoder has four solves:
   for the whole `(B, D)` batch, or per row with `per_sample_control`, its
   backward replaying only the accepted steps (at most `max_record` of them).
 * The RK4 solve of the Roche field runs the CUDA kernel `roche_rk4_trajectory`
-  when the configuration is the one that kernel computes: `method == "rk4"`,
-  the Roche field without ablation, `latent_dim <= 12`, one dose per patient,
-  a CUDA state and no gradient needed.
+  where that kernel computes it (below).
 * Every other configuration solves with `odeint` in plain PyTorch (DOPRI5 in
   lockstep, or a fixed-step method).
 
-`_kernel_route` picks a kernel from what the decoder observes, with no
-switch: the Roche field without ablation, 4 <= `latent_dim` <= `MAX_DIM`
-(12), one dose per patient, a state on a device of `KERNEL_DEVICES` and no
-`torch.func` transform; then, with no gradient needed,
-`roche_dopri5_per_row` for per-patient DOPRI5 off the adjoint solver and
-`roche_rk4_trajectory` for RK4; with one needed, `roche_dopri5_per_row_grad`
-for per-patient DOPRI5 off the adjoint solver whose expert constants are
-frozen. `--restart_mode vmap`, the lockstep adjoint, RK4 with gradients,
-the trained expert (`train_expert`), the ablation and the neural field, and
+The decoder asks only which solve its spec wants of the Roche field without
+ablation (`SimDecoderSpec.roche_solve`); whether a kernel computes it, and
+which, `ops.contract.roche_kernel` decides from what it observes: a width
+the kernels are built for, one dose per patient, a state on a kernel
+device, no `torch.func` transform, and which leaves need a gradient. So
+`--restart_mode vmap`, the lockstep adjoint, RK4 with gradients, the
+trained expert (`train_expert`), the ablation and the neural field, and
 every CPU state keep the plain solvers. A decode names its route ("dopri5",
 "dopri5_grad", "rk4" or "plain") on the `decode` span its caller has open.
 
@@ -58,7 +54,6 @@ import torch
 from .. import resolve_device
 from ..config import DTYPE, RocheConfig
 from ..fields import (
-    FROZEN_KEYS,
     CumDoseContext,
     doses_from_actions,
     init_neural_field,
@@ -72,8 +67,9 @@ from ..fields import (
     roche_field,
     roche_real_field,
 )
+from ..ops.contract import decode_inputs, roche_kernel
 from ..ops.roche_dopri5 import roche_dopri5_per_row, roche_dopri5_per_row_grad
-from ..ops.roche_rk4 import MAX_DIM, roche_rk4_trajectory
+from ..ops.roche_rk4 import roche_rk4_trajectory
 from ..solvers import FIXED_METHODS, odeint, odeint_dopri5, odeint_dopri5_adjoint
 from ..utils.logging import annotate
 from . import nn
@@ -115,6 +111,16 @@ class SimDecoderSpec(NamedTuple):
             return 1
         return max(1, int(round(self.step_size / self.ode_step_size)))
 
+    @property
+    def roche_solve(self) -> Optional[str]:
+        """The solve of the Roche field without ablation that a kernel may compute (`ops.contract.roche_kernel`):
+        per-patient DOPRI5 off the adjoint solver ("dopri5"), RK4 ("rk4"), or None."""
+        if not self.roche or self.ablate:
+            return None
+        if self.method == "dopri5" and self.per_sample_control and not self.use_adjoint:
+            return "dopri5"
+        return "rk4" if self.method == "rk4" else None
+
 
 @functools.lru_cache(maxsize=None)
 def device_grid(spec, device, dtype=torch.float32) -> torch.Tensor:
@@ -134,50 +140,19 @@ def init_sim_decoder(generator, spec: SimDecoderSpec, roche_config: RocheConfig 
     return nn.ParamTree(tree).to(device)
 
 
-KERNEL_DEVICES = ("cuda",)  # the device types the kernels run on
-
-
-def _kernel_route(spec: SimDecoderSpec, params, init, ctx) -> Optional[str]:
-    """The kernel that computes the decode, or None: the kernels' field on a state of a kernel device, not inside
-    a `torch.func` transform (the kernels read raw device pointers). "dopri5" or "rk4" where no gradient is needed;
-    "dopri5_grad" for a per-patient DOPRI5 decode that needs one and whose frozen leaves (the expert constants)
-    need none."""
-    if spec.method == "dopri5" and spec.per_sample_control and not spec.use_adjoint:
-        route = "dopri5"
-    elif spec.method == "rk4":
-        route = "rk4"
-    else:
-        return None
-    takes = (spec.roche and not spec.ablate and 4 <= spec.latent_dim <= MAX_DIM and ctx.times.shape[-1] == 1
-             and init.device.type in KERNEL_DEVICES and not torch._C._functorch.is_functorch_wrapped_tensor(init)
-             and torch._C._functorch.maybe_current_level() is None)
-    if not takes:
-        return None
-    if not torch.is_grad_enabled() or not (init.requires_grad or any(p.requires_grad for p in params.parameters())):
-        return route
-    frozen = [params[key] for key in FROZEN_KEYS if key in params]
-    frozen = [p for f in frozen for p in (f.parameters() if isinstance(f, torch.nn.Module) else [f])]
-    return "dopri5_grad" if route == "dopri5" and not any(p.requires_grad for p in frozen) else None
-
-
 def sim_decoder_apply(params, spec: SimDecoderSpec, init, actions):
     """(B, D) initial latents + (T, B, A) actions -> (x_hat, h)."""
     ctx = doses_from_actions(actions, spec.step_size)
     ts = device_grid(spec, init.device)
     ode = params["ode"]
     field = roche_field if spec.roche else neural_field
-    route = _kernel_route(spec, ode, init, ctx)
+    route = roche_kernel(spec.roche_solve, ode, init, ctx)
     annotate("decode", route=route or "plain")
-    if route is not None:
-        ml = ode["ml_net"][0] if "ml_net" in ode else None
-        kernel_args = (init.contiguous(), ctx.times[:, 0].contiguous(), ctx.amounts.contiguous(), ode["expert"],
-                       None if ml is None else ml["w"], None if ml is None else ml["b"], ts)
-    if route == "dopri5":
-        h, _ = roche_dopri5_per_row(*kernel_args, rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
-    elif route == "dopri5_grad":
-        h, _ = roche_dopri5_per_row_grad(*kernel_args, rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+    if route in ("dopri5", "dopri5_grad"):
+        solve = roche_dopri5_per_row if route == "dopri5" else roche_dopri5_per_row_grad
+        h, _ = solve(*decode_inputs(ode, init, ctx, ts), rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
     elif route == "rk4":
-        h = roche_rk4_trajectory(*kernel_args, spec.n_substeps)
+        h = roche_rk4_trajectory(*decode_inputs(ode, init, ctx, ts), spec.n_substeps)
     elif spec.method == "dopri5" and spec.use_adjoint:
         h, _ = odeint_dopri5_adjoint(field, init, ts, (ode, ctx), rtol=spec.rtol, atol=spec.atol,
                                      max_steps=spec.max_steps, max_record=spec.max_record,

@@ -32,7 +32,7 @@ from dataclasses import dataclass
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.normpath(os.path.join(CSRC, os.pardir, os.pardir, os.pardir, ".torch_ext_build"))
 DIM_MACRO = "ROCHE_DOPRI5_DIM"  # set to the one state width a library of roche_dopri5.cu compiles
-WIDTHS = tuple(range(4, 13))
+WIDTHS = tuple(range(4, 13))  # the state widths the kernels are built for: 4 expert states + 0-8 learned
 TARGETS = (("roche_rk4", None), *(("roche_dopri5", D) for D in WIDTHS))  # every library: (source, width or None)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -121,14 +121,24 @@ def load(name: str, dim=None) -> ctypes.CDLL:
     return ctypes.CDLL(build_all(((name, dim),))[_label(name, dim)].path)
 
 
+def c_function(lib: ctypes.CDLL, symbol: str, argtypes: list):
+    """The C function `symbol` of a loaded library, taking `argtypes` and returning a cudaError_t: a call raises
+    RuntimeError where that is not cudaSuccess (0)."""
+    fn = getattr(lib, symbol)
+    fn.restype, fn.argtypes, fn.errcheck = ctypes.c_int, argtypes, _raise_on_error
+    return fn
+
+
+def _raise_on_error(err, fn, args):
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {err}")
+    return err
+
+
 def kernel_info(lib: ctypes.CDLL, symbol: str, *args: int) -> dict:
     """Registers and local (spill) bytes a thread of a kernel of a loaded library, from its C function
     `symbol(int args..., int *registers, int *local_bytes) -> cudaError_t`."""
-    fn = getattr(lib, symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn = c_function(lib, symbol, [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2)
     vals = [ctypes.c_int(0) for _ in range(2)]
-    err = fn(*(int(a) for a in args), *(ctypes.byref(v) for v in vals))
-    if err != 0:
-        raise RuntimeError(f"{symbol}{tuple(args)} failed: cudaError_t {err}")
+    fn(*(int(a) for a in args), *(ctypes.byref(v) for v in vals))
     return dict(zip(("registers", "local_bytes"), (v.value for v in vals)))

@@ -4,9 +4,9 @@ The kernels (`csrc/roche_dopri5.cu`) replace no TPU kernel. The solve runs,
 in one launch, what the plain version runs as some 480 small kernels a trial
 step: `odeint_dopri5(roche_field, y0, ts, (params, ctx), rtol, atol,
 max_steps, per_row=True)` for one bolus dose a row, one thread a row, each
-row stopping when it finishes. The decoder takes it for decodes that need no
-gradient (evaluation, the fused loop's validation). The kernel's header says
-what it computes and how it rounds.
+row stopping when it finishes. `contract.roche_kernel` routes to it the
+decodes that need no gradient (evaluation, the fused loop's validation).
+The kernel's header says what it computes and how it rounds.
 
 `roche_dopri5_per_row` launches it on CUDA tensors and raises on anything it
 cannot take; on CPU tensors it runs the plain version
@@ -26,9 +26,9 @@ step sizes, the error norm and the controller carry none. One difference:
 the plain solver's backward also runs through every rejected trial, whose
 stages, where they overflow, put 0 * inf = NaN into the gradient through the
 select; the kernel replays no rejected trial. The 13 expert constants get no
-gradient (the decoder refuses the route where one needs it). On CPU tensors
-it runs the plain solver with autograd. Each forward launch adds one to
-`roche_dopri5_per_row_grad.launches`. The grid must ascend.
+gradient (`contract.roche_kernel` refuses the route where one needs it). On
+CPU tensors it runs the plain solver with autograd. Each forward launch adds
+one to `roche_dopri5_per_row_grad.launches`. The grid must ascend.
 
 Inside `dopri5.full_budget(tally)` either solve adds the sum of its rows' trial steps
 to both counters of the tally, on the device: it runs no trial step for a
@@ -45,26 +45,27 @@ import ctypes
 import torch
 
 from ..config import ROCHE_PARAM_NAMES
-from ..fields import DoseContext, roche_field
+from ..fields import roche_field
 from ..solvers import dopri5
 from ..solvers.dopri5 import Dopri5Stats, odeint_dopri5
 from ..utils.logging import DeviceCounter
-from .roche_rk4 import _check
+from . import build
+from .contract import check, constants, field_args
 
 # The eager launches' sums: trial and accepted steps on the device, launches and rows on the host. `EAGER.read()`
 # reads each device once: call it outside a timed stretch.
 EAGER = DeviceCounter(("trial_steps", "accepted_steps"), ("launches", "rows"))
+# The argument types of the two launch functions of a library (one a width, `build.WIDTHS`).
+_SOLVE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+               + [ctypes.c_void_p])
+_BACKWARD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def roche_dopri5_per_row_reference(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol: float = 1e-7,
                                    atol: float = 1e-8, max_steps: int = 256):
     """Plain PyTorch version: `odeint_dopri5(roche_field, per_row=True)` on the same inputs -> (ys, stats)."""
-    params = {"expert": {name: expert_params[name] for name in ROCHE_PARAM_NAMES}}
-    if ml_w is not None:
-        params["ml_net"] = [{"w": ml_w, "b": ml_b}]
-    ctx = DoseContext(times=times[:, None], amounts=amounts)
-    return odeint_dopri5(roche_field, y0, ts, (params, ctx), rtol=rtol, atol=atol, max_steps=max_steps,
-                         per_row=True)
+    return odeint_dopri5(roche_field, y0, ts, field_args(times, amounts, expert_params, ml_w, ml_b), rtol=rtol,
+                         atol=atol, max_steps=max_steps, per_row=True)
 
 
 def roche_dopri5_per_row(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol: float = 1e-7, atol: float = 1e-8,
@@ -72,14 +73,14 @@ def roche_dopri5_per_row(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol
     """Solve the hybrid Roche field from each row of `y0` with its own adaptive DOPRI5 controller.
 
     Args:
-      y0: (B, D) initial latents, 4 <= D <= 12, `roche_rk4.MAX_DIM` (4 expert states + ml remainder).
+      y0: (B, D) initial latents, 4 <= D <= 12, `build.WIDTHS` (4 expert states + ml remainder).
       times: (B,) single-bolus dose times (NO_DOSE_TIME for no dose).
       amounts: (B,) dose amounts.
       expert_params: mapping of the 13 scalar rate constants (ROCHE_PARAM_NAMES).
       ml_w: (D, D-4) remainder weights, or None when D == 4.
       ml_b: (D-4,) remainder bias, or None when D == 4.
       ts: (T,) output grid, ascending.
-      rtol, atol, max_steps: as `odeint_dopri5`; a row has ceil(max_steps / 64) * 64 trial steps.
+      rtol, atol, max_steps: as `odeint_dopri5`; a row has `dopri5.trial_budget(max_steps)` trial steps.
 
     Returns (ys (T, B, D) float32, NaN at grid points a row never reached; Dopri5Stats with per-row
     `n_steps`, `n_accepted` (int32) and `success`).
@@ -87,10 +88,9 @@ def roche_dopri5_per_row(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol
     if y0.device.type == "cpu":
         return roche_dopri5_per_row_reference(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol, atol,
                                               max_steps)
-    out, n_trial, n_acc, success, _ = _solve(y0, times, amounts, _stack(expert_params, y0), ml_w, ml_b, ts, rtol,
-                                             atol, max_steps, record=False)
+    out, stats, _ = _solve(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol, atol, max_steps, record=False)
     roche_dopri5_per_row.launches += 1
-    return out, Dopri5Stats(n_steps=n_trial, n_accepted=n_acc, success=success)
+    return out, stats
 
 
 roche_dopri5_per_row.launches = 0
@@ -141,9 +141,7 @@ def recorded_solve(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol: floa
     """The recording launch alone, on CUDA tensors -> (ys, Dopri5Stats, record): `record[b, n]` is row b's n-th
     accepted step (t, h, then the state at its start), for n < `n_accepted[b]`; the entries past it are not
     written. The outputs are `roche_dopri5_per_row`'s bit for bit."""
-    out, n_trial, n_acc, success, record = _solve(y0, times, amounts, _stack(expert_params, y0), ml_w, ml_b, ts,
-                                                  rtol, atol, max_steps, record=True)
-    return out, Dopri5Stats(n_steps=n_trial, n_accepted=n_acc, success=success), record
+    return _solve(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol, atol, max_steps, record=True)
 
 
 def backward(times, amounts, expert_params, ml_w, ml_b, ts, record, n_accepted, g_out):
@@ -158,23 +156,17 @@ def backward(times, amounts, expert_params, ml_w, ml_b, ts, record, n_accepted, 
     ml = D - 4
     dy0 = torch.empty((B, D), dtype=torch.float32, device=record.device)
     dparams = torch.empty((B, D * ml + ml), dtype=torch.float32, device=record.device) if ml else None
-    params = _stack(expert_params, record)
-    err = _library(D).roche_dopri5_backward_launch(
+    params = constants(expert_params, record)
+    launch = build.c_function(build.load("roche_dopri5", D), "roche_dopri5_backward_launch", _BACKWARD_ARGS)
+    launch(
         times.data_ptr(), amounts.data_ptr(), params.data_ptr(), _ptr(ml_w), _ptr(ml_b), ts.data_ptr(),
         record.data_ptr(), n_accepted.data_ptr(), g_out.data_ptr(), dy0.data_ptr(), _ptr(dparams), B, D, T, budget,
-        _stream(record.device))
-    if err != 0:
-        raise RuntimeError(f"roche_dopri5 backward launch failed: cudaError_t {err}")
+        _stream(record.device),
+    )
     if not ml:
         return dy0, None, None
     total = dparams.sum(dim=0)
     return dy0, total[: D * ml].reshape(D, ml), total[D * ml :]
-
-
-def _stack(expert_params, y0):
-    if y0.device.type != "cuda":
-        raise ValueError(f"roche_dopri5_per_row runs on CUDA or CPU tensors, not {y0.device}")
-    return torch.stack([expert_params[name].detach().reshape(()) for name in ROCHE_PARAM_NAMES])
 
 
 def _ptr(x):
@@ -185,55 +177,33 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _solve(y0, times, amounts, params, ml_w, ml_b, ts, rtol, atol, max_steps, record: bool):
-    """One launch of the solve, recording or not -> (out, n_trial, n_accepted, success, record or None)."""
-    B, D, T = _check(y0, times, amounts, params, ml_w, ml_b, ts)
+def _solve(y0, times, amounts, expert_params, ml_w, ml_b, ts, rtol, atol, max_steps, record: bool):
+    """One launch of the solve, recording or not -> (out, Dopri5Stats, record or None)."""
+    params = constants(expert_params, y0)
+    B, D, T = check(y0, times, amounts, params, ml_w, ml_b, ts)
     if int(max_steps) < 1:
         raise ValueError(f"max_steps must be >= 1, got {max_steps}")
-    tally = dopri5._TALLY
+    tally = dopri5.open_tally()
     if tally is not None and (tally.device != y0.device or tally.dtype != torch.int64 or tally.shape != (2,)):
         raise ValueError(f"the tally must be an int64 tensor of shape (2,) on {y0.device}")
-    budget = trial_budget(max_steps)
+    budget = dopri5.trial_budget(max_steps)
     out = torch.empty((T, B, D), dtype=torch.float32, device=y0.device)
     n_trial, n_acc = (torch.empty(B, dtype=torch.int32, device=y0.device) for _ in range(2))
     success = torch.empty(B, dtype=torch.bool, device=y0.device)
     steps = torch.empty((B, budget, D + 2), dtype=torch.float32, device=y0.device) if record else None
-    floor, rtol_floor = dopri5._noise_floor(torch.float32, rtol)
+    floor, rtol_floor = dopri5.noise_floor(torch.float32, rtol)
     eager = not torch.cuda.is_current_stream_capturing()
     counts = EAGER.tensor(y0.device) if eager else None
-    err = _library(D).roche_dopri5_per_row_launch(
+    launch = build.c_function(build.load("roche_dopri5", D), "roche_dopri5_per_row_launch", _SOLVE_ARGS)
+    launch(
         y0.data_ptr(), times.data_ptr(), amounts.data_ptr(), params.data_ptr(), _ptr(ml_w), _ptr(ml_b),
         ts.data_ptr(), float(rtol), float(atol), floor, rtol_floor,  # ctypes rounds each to float32, as PyTorch does
         out.data_ptr(), n_trial.data_ptr(), n_acc.data_ptr(), success.data_ptr(), _ptr(steps), _ptr(tally),
         _ptr(counts), B, D, T, budget, _stream(y0.device),
     )
-    if err != 0:
-        raise RuntimeError(f"roche_dopri5 kernel launch failed: cudaError_t {err}")
     if eager:
         EAGER.add(launches=1, rows=B)
-    return out, n_trial, n_acc, success, steps
-
-
-def trial_budget(max_steps: int) -> int:
-    """The trial steps a row may take: the eager solver's chunks of 64, as many as `max_steps` asks for."""
-    chunk = dopri5._CHUNK_SIZE
-    return max(1, -(-int(max_steps) // chunk)) * chunk
-
-
-def _library(D: int):
-    """The library of the D-state kernels (one a width, `build.WIDTHS`)."""
-    from . import build
-
-    lib = build.load("roche_dopri5", D)
-    fn, bwd = lib.roche_dopri5_per_row_launch, lib.roche_dopri5_backward_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-    if bwd.restype is not ctypes.c_int or bwd.argtypes is None:
-        bwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return lib
+    return out, Dopri5Stats(n_steps=n_trial, n_accepted=n_acc, success=success), steps
 
 
 KINDS = ("solve", "record", "backward")  # the kernels of a library, in the order of the C side's `Kind`
@@ -242,9 +212,7 @@ KINDS = ("solve", "record", "backward")  # the kernels of a library, in the orde
 def kernel_info(D: int, kind: str = "solve") -> dict:
     """Registers and local (spill) bytes a thread of the built D-state kernel of `kind` (`KINDS`): the solve, the
     recording solve or the backward."""
-    from . import build
-
-    return build.kernel_info(_library(D), "roche_dopri5_kernel_info", KINDS.index(kind), D)
+    return build.kernel_info(build.load("roche_dopri5", D), "roche_dopri5_kernel_info", KINDS.index(kind), D)
 
 
 def roche_dopri5_flops(n_trial: torch.Tensor, D: int) -> int:

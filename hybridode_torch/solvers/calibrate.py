@@ -17,12 +17,11 @@ whose output is not the state's shape.
 
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
 
-from .dopri5 import _CHUNK_SIZE, odeint_dopri5
+from .dopri5 import odeint_dopri5, trial_budget
 
 
 def calibrate_trial_budget(
@@ -41,7 +40,7 @@ def calibrate_trial_budget(
 
     `y0_batch` is (B, D). With `per_sample` every row gets its own step
     control (the sim decoder's default); otherwise one lockstep solve probes
-    the batch. Returns ceil(margin * max trial steps / 64) * 64. Raises
+    the batch. Returns `trial_budget(margin * max trial steps)`. Raises
     RuntimeError if any probe row exhausted even the probe budget.
     """
     with torch.no_grad():
@@ -51,4 +50,4 @@ def calibrate_trial_budget(
         raise RuntimeError(f"calibration probe exhausted its own budget ({probe_budget}); "
                            "raise probe_budget or loosen tolerances")
     demand = int(stats.n_steps.max())
-    return max(1, math.ceil(margin * demand / _CHUNK_SIZE)) * _CHUNK_SIZE
+    return trial_budget(margin * demand)

@@ -23,8 +23,8 @@ The JAX function runs a bounded `lax.scan` of masked trial steps in chunks of
 64 and skips a chunk once the solve has finished. Here the same masked step
 runs in a Python loop, and `finished` is read on the host once a chunk (one
 sync per 64 trial steps). Rows that have finished are frozen by the masks, so
-stopping early gives exactly what the full budget of `ceil(max_steps / 64) *
-64` trial steps gives. Inside `full_budget()` every solve runs that whole
+stopping early gives exactly what the full budget of `trial_budget(max_steps)`
+trial steps gives. Inside `full_budget()` every solve runs that whole
 budget and reads nothing on the host: the mode of a solve captured into a
 CUDA graph or run under `torch.func.vmap` (`inference/fused.py`). The pieces of a solve (`start`, `trial_step`,
 `integrate`, `finish`, `replay_step`) are the adjoint solver's too
@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -93,6 +94,16 @@ def full_budget(tally: Optional[torch.Tensor] = None):
         yield
     finally:
         _FULL_BUDGET, _TALLY = previous
+
+
+def open_tally() -> Optional[torch.Tensor]:
+    """The tally of the open `full_budget(tally)`, or None."""
+    return _TALLY
+
+
+def trial_budget(max_steps) -> int:
+    """The trial steps a solve of `max_steps` runs at most: `max_steps` rounded up to whole chunks of 64."""
+    return max(1, math.ceil(max_steps / _CHUNK_SIZE)) * _CHUNK_SIZE
 
 
 class Dopri5Stats(NamedTuple):
@@ -164,7 +175,7 @@ def _dopri5_step(field: Field, t, y, f0, h, args, tab: _Tableau):
     return y1, ks[6], err, k
 
 
-def _noise_floor(dtype, rtol):
+def noise_floor(dtype, rtol):
     """(10 eps, rtol + 10 eps) formed in numpy at the state's precision, as JAX forms them."""
     floor = 10.0 * np.finfo(getattr(np, str(dtype).removeprefix("torch."))).eps
     return float(floor), float(rtol + floor)
@@ -238,7 +249,7 @@ def start(field: Field, y0, ts, args, rtol, atol, barriers=None, per_row=False):
     if barriers is not None:
         barriers = torch.as_tensor(barriers, dtype=dtype, device=device)
     solve = Solve(field, args, ts.reshape((-1,) + (1,) * y0.ndim), ts[-1], _Tableau.make(dtype, device),
-                  _noise_floor(dtype, rtol), atol, barriers, per_row)
+                  noise_floor(dtype, rtol), atol, barriers, per_row)
 
     t = ts[0].expand(row_shape)
     f = field(t, y0, args)
@@ -303,7 +314,7 @@ def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_
 
     A row is done when it has finished or spent its `budget`. Done rows are
     frozen by the masks, so stopping at a chunk boundary gives what the full
-    ceil(max_steps / 64) * 64 steps give. Inside `full_budget()` all of them
+    `trial_budget(max_steps)` steps give. Inside `full_budget()` all of them
     run, nothing is read on the host, and its tally, if any, counts them.
     `on_step` gets each step's record.
     With `checkpoint_steps` (and grad mode on) each chunk runs under
@@ -318,8 +329,8 @@ def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_
         return carry
 
     checkpointed = checkpoint_steps and torch.is_grad_enabled()
-    n_trial, chunks = carry[5], max(1, -(-max_steps // _CHUNK_SIZE))
-    for _ in range(chunks):
+    n_trial, run = carry[5], trial_budget(max_steps)
+    for _ in range(run // _CHUNK_SIZE):
         done = carry[-1] if budget is None else carry[-1] | (carry[5] >= budget)
         if not _FULL_BUDGET and bool(done.all()):  # the one host sync of a chunk
             break
@@ -327,7 +338,7 @@ def integrate(s: Solve, carry, max_steps: int, budget: Optional[int] = None, on_
                  else chunk(*carry))
     if _TALLY is not None and torch._C._functorch.maybe_current_level() is None:
         _TALLY[0].add_((carry[5] - n_trial).sum())
-        _TALLY[1].add_(n_trial.numel() * chunks * _CHUNK_SIZE)
+        _TALLY[1].add_(n_trial.numel() * run)
     return carry
 
 

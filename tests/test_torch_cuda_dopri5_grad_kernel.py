@@ -30,8 +30,7 @@ from hybridode_torch.config import ROCHE_PARAM_NAMES, DataConfig, RocheConfig
 from hybridode_torch.data import SyntheticCohort
 from hybridode_torch.fields import DoseContext, init_roche_field, roche_field
 from hybridode_torch.inference import elbo, init_vi
-from hybridode_torch.models import decoders
-from hybridode_torch.ops import roche_dopri5
+from hybridode_torch.ops import contract, roche_dopri5
 from hybridode_torch.solvers import dopri5
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
@@ -99,7 +98,7 @@ def _replay_grads(inp, record, n_acc, g_out, rtol=1e-7, atol=1e-8):
     ts = x["ts"]
     s = dopri5.Solve(roche_field, (params, DoseContext(times=x["times"][:, None], amounts=x["amounts"])),
                      ts.reshape(-1, 1, 1), ts[-1], dopri5._Tableau.make(torch.float32, ts.device),
-                     dopri5._noise_floor(torch.float32, rtol), atol, None, True)
+                     dopri5.noise_floor(torch.float32, rtol), atol, None, True)
     y = x["y0"]
     loss = (g_out[0] * y).sum()
     for n in range(int(n_acc.max())):
@@ -128,7 +127,7 @@ def test_the_recording_forward_is_the_no_grad_kernels_bit_for_bit(cohort, D):
         want, want_st = roche_dopri5.roche_dopri5_per_row(**inp, max_steps=MAX_STEPS)
     got, got_st, _ = _kernel_grads(inp, _g_out(want.shape))
     _, rec_st, record = roche_dopri5.recorded_solve(**inp, max_steps=MAX_STEPS)
-    assert record.shape == (2550, roche_dopri5.trial_budget(MAX_STEPS), D + 2)
+    assert record.shape == (2550, dopri5.trial_budget(MAX_STEPS), D + 2)
     for st in (got_st, rec_st):
         for name in ("n_steps", "n_accepted", "success"):
             assert torch.equal(getattr(st, name), getattr(want_st, name)), name
@@ -152,7 +151,7 @@ def test_gradients_match_autograd_through_replay_step_over_the_records(cohort, D
     g_out = _g_out((T, rows, D))
     ys, st_grad, got = _kernel_grads(inp, g_out)
     assert torch.equal(st_grad.n_accepted, st.n_accepted)
-    budget = roche_dopri5.trial_budget(MAX_STEPS)
+    budget = dopri5.trial_budget(MAX_STEPS)
     if rows >= LATE_EVERY:
         assert bool((st.n_steps == budget).any()) and bool((st.n_steps < budget).any())
         assert bool(torch.isnan(ys[-1]).any()) and bool(torch.isfinite(ys[-1]).any())
@@ -273,7 +272,7 @@ def test_three_training_steps_on_the_route_stay_within_the_cells_limits(cohort, 
     launches = roche_dopri5.roche_dopri5_per_row_grad.launches
     got_losses, got_grads = run()
     assert roche_dopri5.roche_dopri5_per_row_grad.launches == launches + 3
-    monkeypatch.setattr(decoders, "KERNEL_DEVICES", ())
+    monkeypatch.setattr(contract, "KERNEL_DEVICES", ())
     want_losses, want_grads = run()
     assert roche_dopri5.roche_dopri5_per_row_grad.launches == launches + 3
     assert all(np.isfinite(got_losses)) and all(np.isfinite(want_losses))

@@ -29,8 +29,7 @@ from hybridode_torch.data import SyntheticCohort
 from hybridode_torch.eval import evaluate
 from hybridode_torch.fields import NO_DOSE_TIME, init_roche_field
 from hybridode_torch.inference import init_vi
-from hybridode_torch.models import decoders
-from hybridode_torch.ops import roche_dopri5
+from hybridode_torch.ops import contract, roche_dopri5
 from hybridode_torch.solvers import dopri5
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
@@ -119,7 +118,7 @@ def test_kernel_is_as_accurate_as_the_plain_solver(cohort, case):
     assert torch.isfinite(got).all() and bool(got_st.success.all()) and bool(want_st.success.all())
     assert torch.equal(got[0], inp["y0"])
     assert _as_accurate(got, want, exact)
-    budget = roche_dopri5.trial_budget(256)
+    budget = dopri5.trial_budget(256)
     assert int(got_st.n_steps.max()) <= budget and bool((got_st.n_accepted <= got_st.n_steps).all())
 
 
@@ -225,7 +224,7 @@ def test_evaluate_through_the_kernel_matches_the_plain_solver(cohort, monkeypatc
     launches = roche_dopri5.roche_dopri5_per_row.launches
     got = run()
     assert roche_dopri5.roche_dopri5_per_row.launches == launches + 2  # two chunks of 50
-    monkeypatch.setattr(decoders, "KERNEL_DEVICES", ())
+    monkeypatch.setattr(contract, "KERNEL_DEVICES", ())
     want = run()
     assert roche_dopri5.roche_dopri5_per_row.launches == launches + 2
     assert np.isfinite(got).all()
@@ -254,7 +253,7 @@ def test_a_dim12_forecast_takes_the_kernel_and_matches_the_plain_solver(cohort, 
     assert roche_dopri5.roche_dopri5_per_row.launches == launches + 1
     decode = tracing.RECORDER.last("decode")
     assert decode.fields == {"rows": 2550, "dim": 12, "route": "dopri5"}
-    monkeypatch.setattr(decoders, "KERNEL_DEVICES", ())
+    monkeypatch.setattr(contract, "KERNEL_DEVICES", ())
     want = run()
     assert tracing.RECORDER.last("decode").fields["route"] == "plain"
     assert np.isfinite(got).all()

@@ -1,9 +1,10 @@
 """Which decodes the per-row DOPRI5 kernel takes, and what surrounds it, on the CPU.
 
-`decoders._kernel_route` decides from what the decoder observes. The kernel
-runs only on a CUDA state, so these tests let the CPU stand for a kernel
-device (`KERNEL_DEVICES`) to show where the route is taken, and keep the CPU
-out of it to show that a CPU state never takes it. Taken on the CPU, the
+`contract.roche_kernel` decides from what it observes, given the solve the
+spec asks for (`SimDecoderSpec.roche_solve`). The kernel runs only on a CUDA
+state, so these tests let the CPU stand for a kernel device
+(`contract.KERNEL_DEVICES`) to show where the route is taken, and keep the
+CPU out of it to show that a CPU state never takes it. Taken on the CPU, the
 route reaches `roche_dopri5_per_row`'s plain version, so the decode it gives
 is the plain solver's. The kernel itself is held to the plain solver on the
 card (tests/test_torch_cuda_dopri5_kernel.py, and with gradients
@@ -16,8 +17,8 @@ import torch
 from hybridode_torch.fields import DoseContext, init_neural_field, init_roche_field, roche_field
 from hybridode_torch.models import decoders
 from hybridode_torch.models.decoders import SimDecoderSpec
-from hybridode_torch.ops import build, roche_dopri5
-from hybridode_torch.solvers import odeint_dopri5
+from hybridode_torch.ops import build, contract, roche_dopri5
+from hybridode_torch.solvers import dopri5, odeint_dopri5
 
 B = 5
 SPEC = SimDecoderSpec(obs_dim=20, latent_dim=6, action_dim=1, t_max=14, step_size=1, per_sample_control=True,
@@ -82,7 +83,7 @@ def _ctx(doses=1):
 def test_kernel_route_is_taken_only_where_the_kernel_computes_the_decode(name, monkeypatch):
     changes, how, want = ROUTES[name]
     if not how.get("cpu_is_no_kernel_device"):
-        monkeypatch.setattr(decoders, "KERNEL_DEVICES", ("cpu",))
+        monkeypatch.setattr(contract, "KERNEL_DEVICES", ("cpu",))
     spec = SPEC._replace(**changes)
     params = _field(spec)
     if how.get("frozen"):
@@ -98,7 +99,7 @@ def test_kernel_route_is_taken_only_where_the_kernel_computes_the_decode(name, m
             routes = []
 
             def lane(y):
-                routes.append(decoders._kernel_route(spec, params, y, ctx))
+                routes.append(contract.roche_kernel(spec.roche_solve, params, y, ctx))
                 return y
 
             torch.func.vmap(lane)(init[None])
@@ -107,13 +108,13 @@ def test_kernel_route_is_taken_only_where_the_kernel_computes_the_decode(name, m
             routes = []
 
             def loss(y):
-                routes.append(decoders._kernel_route(spec, params, y, ctx))
+                routes.append(contract.roche_kernel(spec.roche_solve, params, y, ctx))
                 return y.sum()
 
             torch.func.grad(loss)(init)
             (got,) = routes
         else:
-            got = decoders._kernel_route(spec, params, init, ctx)
+            got = contract.roche_kernel(spec.roche_solve, params, init, ctx)
     assert got == want
 
 
@@ -135,7 +136,7 @@ def test_the_kernel_route_decodes_what_the_plain_solver_decodes(monkeypatch):
 
     with torch.no_grad():
         want_x, want_h = decoders.sim_decoder_apply(params, spec, init, actions)
-        monkeypatch.setattr(decoders, "KERNEL_DEVICES", ("cpu",))
+        monkeypatch.setattr(contract, "KERNEL_DEVICES", ("cpu",))
         monkeypatch.setattr(decoders, "roche_dopri5_per_row", wrapper)
         got_x, got_h = decoders.sim_decoder_apply(params, spec, init, actions)
     assert calls == [dict(rtol=1e-6, atol=1e-7, max_steps=128)]
@@ -170,7 +171,7 @@ def test_the_grad_route_decodes_and_differentiates_what_the_plain_solver_does(la
         return x, h, torch.autograd.grad(x.square().sum(), leaves), tracing.RECORDER.last("decode").fields["route"]
 
     want_x, want_h, want_g, want_route = decode()
-    monkeypatch.setattr(decoders, "KERNEL_DEVICES", ("cpu",))
+    monkeypatch.setattr(contract, "KERNEL_DEVICES", ("cpu",))
     monkeypatch.setattr(decoders, "roche_dopri5_per_row_grad", wrapper)
     got_x, got_h, got_g, got_route = decode()
     assert (want_route, got_route) == ("plain", "dopri5_grad")
@@ -192,7 +193,7 @@ def test_trial_budget_is_the_plain_solvers(max_steps):
         ys, stats = odeint_dopri5(roche_field, y0, torch.arange(15.0), (params, ctx), rtol=1e-7, atol=1e-8,
                                   max_steps=max_steps, per_row=True)
     assert not bool(stats.success.any())
-    assert stats.n_steps.tolist() == [roche_dopri5.trial_budget(max_steps)] * 2
+    assert stats.n_steps.tolist() == [dopri5.trial_budget(max_steps)] * 2
     assert torch.isnan(ys[-1]).all()
 
 
@@ -225,3 +226,15 @@ def test_a_per_width_source_builds_one_library_a_width():
     assert build._target("roche_rk4")[2] == build.NVCC_FLAGS
     assert build.TARGETS == (("roche_rk4", None), *(("roche_dopri5", D) for D in build.WIDTHS))
 
+
+
+def test_a_launch_function_raises_where_it_returns_an_error():
+    """`build.c_function` sets a C function's signature; a call that returns a nonzero cudaError_t raises, naming
+    the function (libc's `abs` stands for a launch: it returns 0 only for 0)."""
+    import ctypes
+    import ctypes.util
+
+    fn = build.c_function(ctypes.CDLL(ctypes.util.find_library("c")), "abs", [ctypes.c_int])
+    assert fn(0) == 0 and fn.restype is ctypes.c_int
+    with pytest.raises(RuntimeError, match="abs failed: cudaError_t 3"):
+        fn(-3)

@@ -20,7 +20,8 @@ from hybridode_torch.config import RocheConfig
 from hybridode_torch.convert import params_from_jax
 from hybridode_torch.fields import init_roche_field
 from hybridode_torch.ops import roche_rk4
-from hybridode_torch.ops.roche_rk4 import _check, roche_rk4_trajectory, roche_rk4_trajectory_reference
+from hybridode_torch.ops.contract import check
+from hybridode_torch.ops.roche_rk4 import roche_rk4_trajectory, roche_rk4_trajectory_reference
 
 RTOL, ATOL = 2e-3, 5e-4
 # Kernel vs plain version on one card: float32 rounding of two evaluation orders.
@@ -100,8 +101,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 def test_kernel_argument_checks(bad):
     B, D, T = 5, 6, 4
     args = dict(y0=torch.zeros(B, D), times=torch.zeros(B), amounts=torch.zeros(B), params=torch.zeros(13),
-                ml_w=torch.zeros(D, D - 4), ml_b=torch.zeros(D - 4), ts=torch.arange(float(T)), n_substeps=2)
-    assert _check(**args) == (B, D, T)
+                ml_w=torch.zeros(D, D - 4), ml_b=torch.zeros(D - 4), ts=torch.arange(float(T)))
+    assert check(**args) == (B, D, T)
     if bad == "D_too_large":
         args.update(y0=torch.zeros(B, 13), ml_w=torch.zeros(13, 9), ml_b=torch.zeros(9))
     elif bad == "ml_w_missing":
@@ -115,7 +116,7 @@ def test_kernel_argument_checks(bad):
     else:
         args.update(ml_w=torch.zeros(D, D - 4, requires_grad=True))
     with pytest.raises((ValueError, TypeError, RuntimeError)):
-        _check(**args)
+        check(**args)
 
 
 def _cuda_args(device, B, D, seed, hill=None, signed=False):

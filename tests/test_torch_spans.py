@@ -210,10 +210,10 @@ def test_an_evaluate_call_is_a_root_span_of_encode_decode_score_and_bootstrap(co
 def test_a_decode_span_names_its_route_rows_and_dim(cohort, model, kernel_device, monkeypatch):
     """evaluate's `decode` span carries its rows and width and the route the decoder took: the plain solver on a CPU
     state, and the per-row DOPRI5 kernel's route where the CPU stands for a kernel device."""
-    from hybridode_torch.models import decoders
+    from hybridode_torch.ops import contract
 
     if kernel_device:
-        monkeypatch.setattr(decoders, "KERNEL_DEVICES", ("cpu",))
+        monkeypatch.setattr(contract, "KERNEL_DEVICES", ("cpu",))
     params = elbo.init_vi(torch.Generator().manual_seed(0), model, device="cpu")
     np.random.seed(0)
     metrics.evaluate(params, model, _small_test_fold(cohort), 4, 5, mc_itr=3, generator=torch.Generator().manual_seed(1),
