@@ -36,6 +36,17 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    (cuGraphGetNodes, as phase 9 reads them), capture seconds and a replay's
    device milliseconds.
    `python3 chip_smoke.py --phase kernels` runs phases 1-3c alone.
+3d. Real AB4: the real track's explicit-Adams kernels (`roche_real_ab4`
+   without gradients, the pair `roche_real_ab4_grad`) at the real training
+   cell's shape (B=100 patients of data_real/, two substeps an hour over hours
+   23 ... 96) for the hybrid (D=20, field hidden 48) and the expert (D=4):
+   the pair's trajectory and every leaf's gradient against the plain
+   explicit-Adams solve's autograd on the card (AB4_RTOL, AB4_GRAD_RTOL), the
+   no-grad kernel's trajectory against the plain solve's (AB4_RTOL) and
+   equal bit for bit to the recording launch's, times as phase 3's (each
+   kernel's and the plain solve's), registers and spills, and the bounds
+   from `benchmark/costs/real.py`'s field FLOPs (phase 9 counts the real
+   training step's graph on the route and off it).
 4. Slice: `evaluate` of the hybrid model (full width of the cohort's model:
    obs 20, LSTM hidden 40, latent 6, ml remainder 2) on the whole test fold of
    data_s123, decoding with the RK4 kernel (one launch per chunk of 50
@@ -75,7 +86,11 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    both devices, the four horizon RMSEs on both, the largest relative
    differences of the curves and of the RMSEs (one training iteration of
    each is profiled at the end); the RK4 kernel's launches in the phase must
-   be 0 (no kernel is on this path).
+   be 0 (no RK4 kernel is on this path). Each GPU run counts the real AB4
+   pair's forward launches and the no-grad AB4 kernel's launches, and the
+   test fold's forecast (`predict_test`, a decode from the posterior mean)
+   is run once more alone, counting both: the pair must not take it, the
+   no-grad kernel takes the hybrid's once.
    Then the five other methods on the GPU (REAL_OTHER_ITERS iterations each,
    finite losses and RMSEs), and the ensemble and residual CLIs from their
    expert and gruode checkpoints on the GPU and the CPU (RMSEs within
@@ -140,7 +155,9 @@ Phases, one line each (any failure exits non-zero; there is no CPU fallback):
    later rows and the metrics are reported, not held). The captured step's
    graph: its nodes, capture and instantiation seconds, one replay's device
    and wall milliseconds. The real hybrid captured at REAL_HELD_STEP_DIV
-   steps an hour against the CPU within REAL_RTOL. `--restart_mode vmap`
+   steps an hour against the CPU within REAL_RTOL, its step's graph on the
+   AB4 route and off it (`real_step_graph`), and FUSED_RESTARTS of its
+   restarts as one batched program, which launch no AB4 kernel. `--restart_mode vmap`
    with FUSED_RESTARTS restarts (VMAP_ITERS iterations, validation every
    VMAP_TEST_FREQ) against `seq` from the same seed: its seconds against the
    sequential restarts', its best loss within FUSED_BEST_RTOL and its
@@ -180,10 +197,13 @@ the `kernels` JSON (the RK4 kernel's launches on every path of the run beside
 the main path's `launches`, `evaluate_sharded` among them; the DOPRI5 kernel's
 numbers; the DOPRI5 pair with gradients' numbers from phase 3c, its bound
 computed from that solve's trial and accepted steps, and its forward launches
-on every training path of phases 5-10), the nvidia-smi line and
-{"ok": true, "device": {...}}. Every path of GRAD_ROUTE_PATHS must launch the
-pair and every other training path must not, or the script fails after the
-`kernels` JSON.
+on every training path of phases 5-10; the real AB4 pair's and the no-grad
+AB4 kernel's numbers from phase 3d, each with its launches on every
+real-track path of phases 6 and 9, `predict_test` and vmap restarts among
+them), the nvidia-smi line and {"ok": true, "device": {...}}. Every path of
+GRAD_ROUTE_PATHS must launch the DOPRI5 pair and every other training path
+must not, every path of an AB4 kernel's AB4_ROUTE_PATHS that kernel and
+every other real path not, or the script fails after the `kernels` JSON.
 """
 
 from __future__ import annotations
@@ -299,6 +319,24 @@ DOPRI5_GRAD_ATOL = 1e-5
 # field (the residual CLI trains one) and the NNLS ensemble must not launch it.
 GRAD_ROUTE_PATHS = ("run_simulation", "run_simulation_flow", "run_simulation_members_expert", "fused_gpu",
                     "fused_gpu_host_loop", "fused_seq", "fused_dp")
+# Phase 3d, the real track's explicit-Adams kernels at the real training cell's shape: (method, D); the kernels
+# against the plain solve on the card, relative in norm: the trajectory of each, each leaf's gradient.
+AB4_CASES = [("hybrid", 20), ("expert", 4)]
+AB4_HIDDEN = 48  # run_real's field hidden width: with AB4_CASES' widths, the libraries the script builds up front
+AB4_RTOL, AB4_GRAD_RTOL = 1e-5, 2e-3
+# Each AB4 kernel's launch count in a run's record: the pair's forward launches, the no-grad kernel's launches.
+AB4_COUNTS = ("roche_real_ab4_grad_launches", "roche_real_ab4_launches")
+# The real-track paths of phases 6 and 9 whose decodes take each AB4 kernel (`real_ab4_kernel`); every other real path
+# must launch it 0 times. The pair: the hybrid's training at one and at two steps an hour, the expert's (D = 4), the
+# captured hybrid; not `predict_test`, vmap restarts, the neural, 2nd, tlstm and gruode methods, the ensemble and the
+# residual (a gruode model). The no-grad kernel: the same runs' validations and test forecasts, `predict_test` alone,
+# the ensemble's and the residual's expert forecasts, the captured hybrid's validation graph; not vmap restarts and
+# the other methods.
+AB4_ROUTE_PATHS = {
+    "roche_real_ab4_grad": ("run_real_hybrid", "run_real_held", "run_real_expert", "fused_real"),
+    "roche_real_ab4": ("run_real_hybrid", "run_real_held", "run_real_expert", "run_real_ensemble", "run_real_residual",
+                       "predict_test", "fused_real"),
+}
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -602,6 +640,82 @@ def _step_graph(params, model, batch, eps, eps_kl):
         loss = step()[0].item()
     torch.cuda.current_stream().wait_stream(stream)
     return dict(_graph_of(step, stream), loss=loss)
+
+
+def phase_real_ab4(seed):
+    """Phase 3d: the real track's explicit-Adams kernels against the plain solve's autograd at the real training
+    cell's shape (B=100, two substeps an hour), for each case of AB4_CASES."""
+    import torch
+
+    from benchmark.costs import real as real_costs
+    from hybridode_torch.cli.common import build_real_model
+    from hybridode_torch.data import RealCohort
+    from hybridode_torch.inference import init_vi
+    from hybridode_torch.ops import roche_real_ab4 as ab4
+
+    cohort = RealCohort(REAL_DATA, device="cuda")
+    cohort.split_sample()
+    actions = cohort.get_split("train", 100, 0)["actions"].contiguous()
+    rows, faults = [], []
+    for method, D in AB4_CASES:
+        model = build_real_model(method, cohort.obs_dim, cohort.action_dim, cohort.static_dim, cohort.t_max,
+                                 cohort.step_size, encoder_output_dim=D, ode_step_div=REAL_HELD_STEP_DIV)
+        spec = model.decoder_spec
+        ode = init_vi(torch.Generator().manual_seed(seed), model, device="cuda")["decoder"]["ode"]
+        leaves = ab4.field_leaves(ode)
+        gen = torch.Generator().manual_seed(seed)
+        y0 = (0.5 * torch.randn(100, D, generator=gen)).cuda()
+        ts, n_sub = torch.as_tensor(spec.ts, device="cuda"), spec.n_substeps
+        g_out = torch.randn((ts.shape[0], 100, D), generator=gen).cuda()
+
+        def grads(fn):
+            y = y0.clone().requires_grad_()
+            out = fn(y, actions, ode, ts, n_sub)
+            return (out.detach(), *torch.autograd.grad(out, (y, *leaves), g_out))
+
+        kernel = lambda: grads(ab4.roche_real_ab4_grad)  # noqa: E731
+        plain = lambda: grads(ab4.roche_real_ab4_reference)  # noqa: E731
+        got, want = kernel(), plain()
+        with torch.no_grad():
+            ys, record = ab4.recorded_solve(y0, actions, ode, ts, n_sub)
+            solve = lambda: ab4.roche_real_ab4(y0, actions, ode, ts, n_sub)  # noqa: E731
+            solved = solve()
+        # The no-grad kernel's trajectory beside the pair's, against the plain solve's; it must equal the recording
+        # launch's bit for bit.
+        names = ("trajectory", "y0", *(ab4.MLP_LEAVES + ab4.RATE_LEAVES + ab4.GRU_LEAVES)[: len(leaves)])
+        err = {n: ((a.double() - b.double()).norm() / b.double().norm()).item()
+               for n, a, b in zip(("solve", *names), (solved, *got), (want[0], *want))}
+        solve_is_record = torch.equal(solved, ys)
+        ok = (err["trajectory"] < AB4_RTOL and err["solve"] < AB4_RTOL and solve_is_record
+              and all(math.isfinite(e) and e < AB4_GRAD_RTOL for e in err.values()))
+        with torch.no_grad():
+            row = dict(method=method, B=100, D=D, H=spec.hidden_dim, substeps=record.shape[1], rel_diff_plain=err,
+                       solve_is_record=solve_is_record,
+                       **{f"{kind}_{k}": v for kind, bk in (("forward", False), ("backward", True))
+                          for k, v in ab4.kernel_info(D, spec.hidden_dim, bk).items()},
+                       solve_ms=cuda_ms(solve), solve_device_ms=queued_ms(solve),
+                       solve_plain_ms=cuda_ms(lambda: ab4.roche_real_ab4_reference(y0, actions, ode, ts, n_sub),
+                                              warmup=1, runs=PLAIN_RUNS),
+                       record_device_ms=queued_ms(lambda: ab4.recorded_solve(y0, actions, ode, ts, n_sub)),
+                       backward_device_ms=queued_ms(lambda: ab4.backward(actions, leaves, ts, n_sub, record, g_out)))
+        # The bounds: benchmark/costs/real.py's field FLOPs a row for each evaluation (the substeps and RK4's three
+        # more a bootstrap substep), over the card's FP32 peak: the solve's once; the pair's once forward and twice
+        # for the vector-Jacobian product, the work the gradients need (the kernel's recomputation of the field from
+        # the recorded state is its design's, not counted). The record (1.2 MB) is negligible.
+        field = real_costs.field(dict(t_max=actions.shape[0], field_hidden_dim=spec.hidden_dim, latent_dim=D,
+                                      expert_dim=4, action_dim=actions.shape[2]))
+        solve_flops = 100 * (record.shape[1] + 9) * field
+        flops = 3 * solve_flops
+        row.update(ms=cuda_ms(kernel), device_ms=queued_ms(kernel), plain_ms=cuda_ms(plain, warmup=1, runs=PLAIN_RUNS),
+                   field_flops=field, flops=flops, bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                   solve_bound_ms=solve_flops / PEAK_FP32_FLOPS * 1e3, bound_by="operations", within_tol=ok)
+        print("kernel roche_real_ab4 " + json.dumps(row), flush=True)
+        if not ok:
+            faults.append(f"roche_real_ab4 ({method}, D={D}) against the plain solve beyond tolerance: {err}")
+        rows.append(row)
+    if faults:
+        raise SystemExit("\n".join(faults))
+    return rows
 
 
 def dopri5_exact(inp):
@@ -976,7 +1090,8 @@ def _check_pair(pair, iters, test_freq, rtol):
 
 
 def _real_run(device, seed, model_dir, method="hybrid", niters=REAL_ITERS, test_freq=REAL_TEST_FREQ, ode_step_div=1):
-    """The real CLI's run on `device`; -> its curve, step seconds, predict_test seconds, horizon RMSEs, params, model."""
+    """The real CLI's run on `device`; -> its curve, step seconds, predict_test seconds, horizon RMSEs, each AB4
+    kernel's launches (AB4_COUNTS), params, model."""
     import numpy as np
 
     from hybridode_torch.cli import run_real
@@ -984,6 +1099,7 @@ def _real_run(device, seed, model_dir, method="hybrid", niters=REAL_ITERS, test_
     os.makedirs(model_dir, exist_ok=True)
     curve_path, events_path = (os.path.join(model_dir, f"{method}.{ext}") for ext in ("csv", "jsonl"))
     np.random.seed(seed)  # the bootstrap sd column
+    ab4_before = _ab4_launches()
     t = time.perf_counter()
     params, model, report = run_real.run(
         seed=seed, method=method, niters=niters, ode_step_div=ode_step_div, data_path=REAL_DATA, batch_size=100,
@@ -996,7 +1112,8 @@ def _real_run(device, seed, model_dir, method="hybrid", niters=REAL_ITERS, test_
         events = [json.loads(ln) for ln in f]
     return dict(curve=curve, step_s=[e["seconds"] for e in events if e["event"] == "step"],
                 predict_s=next(e["seconds"] for e in events if e["event"] == "predict_test"),
-                rmse=[r[1] for r in report], seconds=seconds, **_loop_record(events)), params, model
+                rmse=[r[1] for r in report], seconds=seconds, **_ab4_since(ab4_before), **_loop_record(events)), \
+        params, model
 
 
 def _real_pair(seed, tmp, ode_step_div, probes):
@@ -1006,17 +1123,27 @@ def _real_pair(seed, tmp, ode_step_div, probes):
 
     from hybridode_torch.data import RealCohort
 
+    from hybridode_torch.cli.run_real import T0, predict_test
+
     gpu, params, model = _real_run("cuda", seed, os.path.join(tmp, f"gpu{ode_step_div}"), ode_step_div=ode_step_div)
     torch.cuda.synchronize()
     cpu, _, _ = _real_run("cpu", seed, os.path.join(tmp, f"cpu{ode_step_div}"), ode_step_div=ode_step_div)
     cohort = RealCohort(REAL_DATA, device="cuda")
     cohort.split_sample()
+    # The test fold's forecast alone (a decode from the posterior mean, without gradients): the AB4 pair may not take
+    # it; the hybrid's takes the AB4 kernel without gradients, once.
+    grad_0, solve_0 = _ab4_launches()
+    predict_test(params, model, cohort.data_test, T0)
+    torch.cuda.synchronize()
+    predict_launches = [n - n0 for n, n0 in zip(_ab4_launches(), (grad_0, solve_0))]
     first = cohort.get_split("train", 100, 1 % max(1, cohort.train_size // 100))
     probes[f"real_step_div_{ode_step_div}"] = _profile_probe(params, model, first, seed)
     gpu_losses = [v for row in gpu["curve"] for v in row[1:]]
     cpu_losses = [v for row in cpu["curve"] for v in row[1:]]
     return dict(
-        ode_step_div=ode_step_div,
+        ode_step_div=ode_step_div, roche_real_ab4_grad_launches=gpu["roche_real_ab4_grad_launches"],
+        roche_real_ab4_launches=gpu["roche_real_ab4_launches"], predict_test_ab4_grad_launches=predict_launches[0],
+        predict_test_ab4_launches=predict_launches[1],
         iter_s_gpu=statistics.median(gpu["step_s"]), iter_s_cpu=statistics.median(cpu["step_s"]),
         iter_s_gpu_all=gpu["step_s"], iter_s_cpu_all=cpu["step_s"],
         predict_test_s_gpu=gpu["predict_s"], predict_test_s_cpu=cpu["predict_s"],
@@ -1032,10 +1159,11 @@ def _blend_run(cli, device, seed, init_path, model_dir):
     import numpy as np
 
     np.random.seed(seed)
+    ab4_before = _ab4_launches()
     t = time.perf_counter()
     kw = dict(niters=REAL_OTHER_ITERS, model_dir=model_dir + "/") if cli.__name__.endswith("residual") else {}
     report = cli.run(seed=seed, init_path=init_path + "/", data_path=REAL_DATA, device=device, **kw)
-    return dict(rmse=[r[1] for r in report], seconds=time.perf_counter() - t)
+    return dict(rmse=[r[1] for r in report], seconds=time.perf_counter() - t, **_ab4_since(ab4_before))
 
 
 def phase_real(args, probes):
@@ -1058,7 +1186,8 @@ def phase_real(args, probes):
                                   test_freq=REAL_OTHER_ITERS)
             losses = [v for row in run["curve"] for v in row[1:]]
             others[method] = dict(seconds=run["seconds"], iter_s=run["step_s"], losses=losses, rmse=run["rmse"],
-                                  finite=bool(losses) and all(map(finite, losses + run["rmse"])))
+                                  finite=bool(losses) and all(map(finite, losses + run["rmse"])),
+                                  **{k: run[k] for k in AB4_COUNTS})
         blends = {}
         for blend in (run_real_ensemble, run_real_residual):
             name = blend.__name__.rsplit("_", 1)[1]
@@ -1068,8 +1197,14 @@ def phase_real(args, probes):
     torch.cuda.synchronize()
     rk4_launches = roche_rk4.roche_rk4_trajectory.launches
 
+    # Each AB4 kernel's launches on every real path: the pair's, then the no-grad kernel's.
+    ab4_launches = {key: dict(run_real_hybrid=cli[key], run_real_held=held[key],
+                              **{f"run_real_{m}": r[key] for m, r in others.items()},
+                              **{f"run_real_{name}": runs["cuda"][key] for name, runs in blends.items()},
+                              predict_test=cli[f"predict_test_{tag}"] + held[f"predict_test_{tag}"])
+                    for key, tag in zip(AB4_COUNTS, ("ab4_grad_launches", "ab4_launches"))}
     line = dict(seconds=time.perf_counter() - t0, cli=cli, held=held, roche_rk4_launches=rk4_launches,
-                roche_dopri5_grad_launches=_grad_launches(), methods=others, **blends)
+                roche_dopri5_grad_launches=_grad_launches(), **ab4_launches, methods=others, **blends)
     print("real " + json.dumps(line), flush=True)
 
     for a, b in zip(cli_gpu_losses + cli["rmse_gpu"], cli_cpu_losses + cli["rmse_cpu"]):
@@ -1090,15 +1225,32 @@ def phase_real(args, probes):
             raise SystemExit(f"{name}: GPU {runs['cuda']['rmse']} vs CPU {runs['cpu']['rmse']} beyond rtol={REAL_RTOL}")
     if rk4_launches:
         raise SystemExit(f"the RK4 kernel was launched {rk4_launches} times on the real track")
+    if [run["predict_test_ab4_launches"] for run in (cli, held)] != [1, 1]:
+        raise SystemExit(f"the hybrid's test forecast took the no-grad AB4 kernel {cli['predict_test_ab4_launches']} "
+                         f"and {held['predict_test_ab4_launches']} times, expected once each")
     return line
 
 
 def _zero_launches():
-    """Zero the launch counts of the RK4 kernel and of the DOPRI5 kernel pair with gradients."""
-    from hybridode_torch.ops import roche_dopri5, roche_rk4
+    """Zero the launch counts of the RK4 kernel, of the DOPRI5 kernel pair with gradients and of the real AB4
+    kernels."""
+    from hybridode_torch.ops import roche_dopri5, roche_real_ab4, roche_rk4
 
     roche_rk4.roche_rk4_trajectory.launches = 0
     roche_dopri5.roche_dopri5_per_row_grad.launches = 0
+    roche_real_ab4.roche_real_ab4_grad.launches = roche_real_ab4.roche_real_ab4.launches = 0
+
+
+def _ab4_launches() -> tuple[int, int]:
+    """The real AB4 pair's forward launches and the no-grad AB4 kernel's launches, since `_zero_launches`."""
+    from hybridode_torch.ops import roche_real_ab4
+
+    return roche_real_ab4.roche_real_ab4_grad.launches, roche_real_ab4.roche_real_ab4.launches
+
+
+def _ab4_since(before) -> dict:
+    """Each AB4 kernel's launches since `before` (an `_ab4_launches()`), under its name of AB4_COUNTS."""
+    return {key: n - n0 for key, n, n0 in zip(AB4_COUNTS, _ab4_launches(), before)}
 
 
 def _grad_launches() -> int:
@@ -1545,6 +1697,7 @@ def phase_fused(args):
 
     t0, seed = time.perf_counter(), args.seed
     line, faults, launches, grad_launches = {}, [], {}, {}
+    ab4_launches = {key: {} for key in AB4_COUNTS}
 
     def sim(device, tmp, on, **kw):
         kw = dict(dict(niters=FUSED_ITERS, test_freq=FUSED_TEST_FREQ, n_restart=1), **kw)
@@ -1587,8 +1740,11 @@ def phase_fused(args):
         with _fused_loop(True):
             (real_gpu, _, _), _, launches["real"], grad_launches["real"] = _counted(lambda: _real_run(
                 "cuda", seed, os.path.join(tmp, "real_gpu"), ode_step_div=REAL_HELD_STEP_DIV))
-            line["real_step_graph"] = _graph_measure(fused._LAST_RUN)
+            line["real_step_graph"] = _graph_routes(fused._LAST_RUN)
             real_cpu, _, _ = _real_run("cpu", seed, os.path.join(tmp, "real_cpu"), ode_step_div=REAL_HELD_STEP_DIV)
+            vmap_launches = _real_vmap(seed, os.path.join(tmp, "real_vmap_"))
+            for key in AB4_COUNTS:
+                ab4_launches[key].update(real=real_gpu[key], real_vmap=vmap_launches[key])
         line["real"] = dict(iter_s_gpu=_steady_iter_s(real_gpu, REAL_TEST_FREQ),
                             iter_s_cpu=_steady_iter_s(real_cpu, REAL_TEST_FREQ), window_s_gpu=real_gpu["window_s"],
                             window_s_cpu=real_cpu["window_s"], captures=real_gpu["captures"],
@@ -1613,6 +1769,7 @@ def phase_fused(args):
         line["vmap"] = batched
     line["roche_rk4_launches"] = launches
     line["roche_dopri5_grad_launches"] = grad_launches
+    line.update(ab4_launches)
     line["seconds"] = time.perf_counter() - t0
     print("fused " + json.dumps(line), flush=True)
 
@@ -1644,6 +1801,51 @@ def phase_fused(args):
         raise SystemExit("; ".join(faults))
     torch.cuda.synchronize()
     return line
+
+
+def _graph_routes(run) -> dict:
+    """A fused real run's step as a graph on its route (`_graph_measure`) and off it (KERNEL_DEVICES emptied, the step
+    run once eagerly on its stream first); -> {"ab4_grad": ..., "plain": ...} as `_graph_of`. The calls step the
+    finished run's parameters, which nothing reads any more."""
+    import torch
+
+    from hybridode_torch.ops import contract
+
+    graphs = {"ab4_grad": _graph_measure(run)}
+    saved, contract.KERNEL_DEVICES = contract.KERNEL_DEVICES, ()
+    try:
+        run.step.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(run.step.stream):
+            run.step.fn()
+        torch.cuda.current_stream().wait_stream(run.step.stream)
+        graphs["plain"] = _graph_of(run.step.fn, run.step.stream)
+    finally:
+        contract.KERNEL_DEVICES = saved
+    return graphs
+
+
+def _real_vmap(seed, path) -> int:
+    """FUSED_RESTARTS restarts of the real hybrid (REAL_HELD_STEP_DIV steps an hour) as one batched program on the GPU,
+    VMAP_ITERS iterations, validation every VMAP_TEST_FREQ; -> each AB4 kernel's launches in it, by its name of
+    AB4_COUNTS (the route refuses a decode under `torch.func`)."""
+    import torch
+
+    from hybridode_torch.cli import common
+    from hybridode_torch.cli.run_real import T0
+    from hybridode_torch.data import RealCohort
+    from hybridode_torch.inference.fused import fused_experiment_loop
+
+    dg = RealCohort(data_path=REAL_DATA, data_type="5", latent_dim=10, val_size=100, test_size=1000, device="cuda")
+    dg.split_sample()
+    model = common.build_real_model("hybrid", dg.obs_dim, dg.action_dim, dg.static_dim, dg.t_max, dg.step_size,
+                                    encoder_output_dim=20, ode_step_div=REAL_HELD_STEP_DIV, t0=T0)
+    g = torch.Generator().manual_seed(seed)
+    before = _ab4_launches()
+    fused_experiment_loop(VMAP_ITERS, dg, model, [common.restart_generators(g) for _ in range(FUSED_RESTARTS)], 100,
+                          0.01, VMAP_TEST_FREQ, path=path, shuffle=False, train_expert=True, verbose=False,
+                          device="cuda")
+    torch.cuda.synchronize()
+    return _ab4_since(before)
 
 
 def _dryrun_start():
@@ -1807,14 +2009,26 @@ def grad_route_faults(launches_by_path: dict) -> list:
             for path, n in launches_by_path.items() if (n > 0) != (path in GRAD_ROUTE_PATHS)]
 
 
+def ab4_route_faults(launches_by_path: dict, kernel: str = "roche_real_ab4_grad") -> list:
+    """The real-track paths whose launches of an AB4 kernel (the pair, or the no-grad `roche_real_ab4`) contradict
+    the route: each path of the kernel's AB4_ROUTE_PATHS must launch it, every other path must not."""
+    paths = AB4_ROUTE_PATHS[kernel]
+    missing = [f"{path}: not run" for path in paths if path not in launches_by_path]
+    return missing + [f"{path}: {n} launches of {kernel}, expected {'some' if path in paths else 0}"
+                      for path, n in launches_by_path.items() if (n > 0) != (path in paths)]
+
+
 def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line, dopri5_rows,
-                 dopri5_line, grad_rows) -> dict:
+                 dopri5_line, grad_rows, ab4_rows) -> dict:
     """The `kernels` JSON: the RK4 kernel's numbers at evaluate's shape (B=2550, the one launch of each chunk) and
     its launches on every path of the run, the main path's beside the others; the per-row DOPRI5 kernel's numbers at
     evaluate's shape and its launches a forecast request (phase 3b); the DOPRI5 pair with gradients' numbers at the
-    training step's shape (B=50, D=6, phase 3c) and its forward launches on every training path of the run."""
-    main_row, dopri5_row, grad_row = rows[0], dopri5_rows[0], grad_rows[0]
+    training step's shape (B=50, D=6, phase 3c) and its forward launches on every training path of the run; the real
+    AB4 pair's and the no-grad AB4 kernel's at the real training cell's shape (B=100, D=20, phase 3d), each with its
+    launches on every real-track path."""
+    main_row, dopri5_row, grad_row, ab4_row = rows[0], dopri5_rows[0], grad_rows[0], ab4_rows[0]
     grad = "roche_dopri5_grad_launches"
+    ab4_paths = {key: dict(**real[key], **{f"fused_{k}": v for k, v in fused_line[key].items()}) for key in AB4_COUNTS}
     return {"kernels": [dict(
         name="roche_rk4", route="cuda", source="hybridode_torch/ops/csrc/roche_rk4.cu",
         replaces="hybridode/ops/pallas/roche_kernel.py:151", launches=launches,
@@ -1859,6 +2073,22 @@ def kernels_line(rows, launches, train, real, more, lockstep, fused_line, parall
         forward_device_ms=grad_row["forward_device_ms"], backward_device_ms=grad_row["backward_device_ms"],
         plain_ms=grad_row["plain_ms"], bound_ms=grad_row["bound_ms"], bound_by=grad_row["bound_by"],
         library_ms=None,  # no single PyTorch call computes this solve or its backward
+    ), dict(
+        name="roche_real_ab4_grad", route="cuda", source="hybridode_torch/ops/csrc/roche_real_ab4.cu", replaces=None,
+        launches_by_path=ab4_paths["roche_real_ab4_grad_launches"],
+        max_err=max(e for r in ab4_rows for k, e in r["rel_diff_plain"].items() if k != "solve"),
+        ms=ab4_row["ms"], device_ms=ab4_row["device_ms"], record_device_ms=ab4_row["record_device_ms"],
+        backward_device_ms=ab4_row["backward_device_ms"], plain_ms=ab4_row["plain_ms"], bound_ms=ab4_row["bound_ms"],
+        bound_by=ab4_row["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this solve or its backward
+    ), dict(
+        name="roche_real_ab4", route="cuda", source="hybridode_torch/ops/csrc/roche_real_ab4.cu", replaces=None,
+        launches_by_path=ab4_paths["roche_real_ab4_launches"],
+        max_err=max(r["rel_diff_plain"]["solve"] for r in ab4_rows),
+        solve_is_record=all(r["solve_is_record"] for r in ab4_rows), ms=ab4_row["solve_ms"],
+        device_ms=ab4_row["solve_device_ms"], plain_ms=ab4_row["solve_plain_ms"], bound_ms=ab4_row["solve_bound_ms"],
+        bound_by=ab4_row["bound_by"],
+        library_ms=None,  # no single PyTorch call computes this solve
     )]}
 
 
@@ -1882,7 +2112,7 @@ def main(argv=None) -> int:
 
     import hybridode_torch
     from hybridode_torch.data import SyntheticCohort
-    from hybridode_torch.ops import build, roche_dopri5, roche_rk4
+    from hybridode_torch.ops import build, roche_dopri5, roche_real_ab4, roche_rk4
 
     start = time.perf_counter()
     smi = nvidia_smi()
@@ -1893,10 +2123,12 @@ def main(argv=None) -> int:
                                    port=hybridode_torch.__version__)), flush=True)
 
     t = time.perf_counter()
-    built = build.build_all()
+    built = build.build_all(build.TARGETS + tuple(("roche_real_ab4", (D, AB4_HIDDEN)) for _, D in AB4_CASES))
     ptxas = [ln.strip() for b in built.values() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
     info = {name: {D: mod.kernel_info(D) for D in build.WIDTHS}  # registers, spills by D
             for name, mod in (("roche_rk4", roche_rk4), ("roche_dopri5", roche_dopri5))}
+    info["roche_real_ab4"] = {f"{D}x{AB4_HIDDEN}": [roche_real_ab4.kernel_info(D, AB4_HIDDEN, bk) for bk in (0, 1)]
+                              for _, D in AB4_CASES}
     print("build " + json.dumps(dict(seconds=time.perf_counter() - t, kernels=sorted(built), ptxas=ptxas, **info)),
           flush=True)
 
@@ -1904,6 +2136,7 @@ def main(argv=None) -> int:
     rows = phase_kernels(cohort, args.seed)
     dopri5_rows, dopri5_line = phase_dopri5(cohort, args.seed)
     grad_rows, _ = phase_dopri5_grad(cohort, args.seed)
+    ab4_rows = phase_real_ab4(args.seed)
     if args.phase == "kernels":
         print(smi, flush=True)
         return 0
@@ -1921,10 +2154,12 @@ def main(argv=None) -> int:
     print("timing " + json.dumps(dict(phases_s=phases_s, profile_s=total_s - phases_s, total_s=total_s)), flush=True)
 
     kernels = kernels_line(rows, launches, train, real, more, lockstep, fused_line, parallel_line, dopri5_rows,
-                           dopri5_line, grad_rows)
+                           dopri5_line, grad_rows, ab4_rows)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     faults = grad_route_faults(kernels["kernels"][2]["launches_by_path"])
+    for entry in kernels["kernels"][3:]:
+        faults += ab4_route_faults(entry["launches_by_path"], entry["name"])
     if faults:
         raise SystemExit("; ".join(faults))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,9 +46,13 @@ decode reads nothing: the per-patient DOPRI5 runs its whole trial budget
 (`dopri5.full_budget`), which gives the early-exit result, and adds its live
 and run trial steps to its graph's tally on the device, which the window's
 one read brings back with the flag (not under `torch.func.vmap`, where
-nothing is counted). The lockstep adjoint solver reads the host
-inside its solve, so its restarts run this loop uncaptured. A capture that
-fails raises; nothing falls back to eager code or to the host loop.
+nothing is counted). Each graph also counts, on the device, the rows its
+real-track decodes took and those the `roche_real_ab4` kernels solved
+(`roche_real_ab4.counting`), brought back by the same read as the window
+span's `ab4_rows_decoded` and `ab4_kernel_rows`. The lockstep adjoint solver
+reads the host inside its solve, so its restarts run this loop uncaptured.
+A capture that fails raises; nothing falls back to eager code or to the host
+loop.
 
 `fused_experiment_loop` runs all restarts as one program (`--restart_mode
 vmap`): their parameters stacked along a leading lane axis
@@ -79,6 +83,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..ops import roche_real_ab4
 from ..solvers import dopri5
 from ..utils.logging import CSVCurveLogger, JSONLLogger, Span
 from . import checkpoint as ckpt
@@ -201,14 +206,17 @@ class _Graphed:
     whole-network capture recipe does. The capture follows it at once, so
     that every later call is a replay. The graph reads its inputs from static
     buffers that the caller fills before each call. A capture that fails
-    raises. Both run under `dopri5.full_budget(self.tally)`: the warm-up and
-    every replay add the trial steps of their DOPRI5 solves to `tally`.
+    raises. Both run under `dopri5.full_budget(self.tally)` and
+    `roche_real_ab4.counting(self.rows)`: the warm-up and every replay add the
+    trial steps of their DOPRI5 solves to `tally`, and the rows of their
+    real-track decodes to `rows` ([rows the AB4 kernel solved, rows decoded]).
     """
 
     def __init__(self, fn, name: str, events: JSONLLogger):
         self.fn, self.name, self.events = fn, name, events
         self.stream = torch.cuda.Stream()  # the warm-up's and the capture's
         self.tally = torch.zeros(2, dtype=torch.int64, device="cuda")  # [live, run] trial steps
+        self.rows = torch.zeros(2, dtype=torch.int64, device="cuda")  # [AB4 kernel rows, real rows decoded]
         self.graph = None
         _GRAPHED.add(self)
 
@@ -223,7 +231,7 @@ class _Graphed:
             return
         self.stream.wait_stream(torch.cuda.current_stream())
         with self.events.span("warmup", graph=self.name), torch.cuda.stream(self.stream), \
-                dopri5.full_budget(self.tally):
+                dopri5.full_budget(self.tally), roche_real_ab4.counting(self.rows):
             self.fn()
         torch.cuda.current_stream().wait_stream(self.stream)
         self._capture()
@@ -237,7 +245,7 @@ class _Graphed:
         gc.disable()
         try:
             with self.events.span("capture", graph=self.name), torch.cuda.graph(graph, stream=self.stream), \
-                    dopri5.full_budget(self.tally):
+                    dopri5.full_budget(self.tally), roche_real_ab4.counting(self.rows):
                 self.fn()
         except Exception as e:
             raise RuntimeError(f"capturing the fused loop's {self.name} into a CUDA graph failed: {e}") from e
@@ -341,12 +349,14 @@ class _Run:
         if capture:
             self.step = _Graphed(self._step, "step", events)
             self.validate = _Graphed(self._validate, "validation", events)
-            # The graphs' trial-step tallies, named as a window span's fields, and their values at the last read.
+            # The graphs' trial-step tallies and their real-track row counts, as a window span's fields, and their
+            # values at the last read.
             self.tallies = {"step": self.step.tally, "val": self.validate.tally}
+            self.rows = (self.step.rows, self.validate.rows)
         else:
             self.step, self.validate = self._step, self._validate
-            self.tallies = {}
-        self.tallied = [0] * (2 * len(self.tallies))
+            self.tallies, self.rows = {}, ()
+        self.tallied = [0] * (2 * len(self.tallies) + 2 * len(self.rows))
 
     def _mask(self, flag, t):
         return flag.reshape(flag.shape + (1,) * (t.ndim - flag.ndim))
@@ -404,12 +414,17 @@ class _Run:
                 s.copy_(n[i])
 
     def _read(self) -> tuple[bool, dict]:
-        """The window's one read: whether any lane runs on, and each graph's trial steps since the last read
-        (`<graph>_trials_live`, `<graph>_trials_run`), in one copy to the host."""
-        read = torch.cat([self.running.any().reshape(1).to(torch.int64), *self.tallies.values()]).tolist()
+        """The window's one read: whether any lane runs on, each graph's trial steps since the last read
+        (`<graph>_trials_live`, `<graph>_trials_run`) and both graphs' real-track rows (`ab4_kernel_rows`,
+        `ab4_rows_decoded`), in one copy to the host."""
+        read = torch.cat([self.running.any().reshape(1).to(torch.int64), *self.tallies.values(), *self.rows]).tolist()
         counts, self.tallied = [a - b for a, b in zip(read[1:], self.tallied)], read[1:]
+        n = 2 * len(self.tallies)
         names = [f"{g}_trials_{k}" for g in self.tallies for k in ("live", "run")]
-        return bool(read[0]), dict(zip(names, counts))
+        fields = dict(zip(names, counts[:n]))
+        if self.rows:
+            fields.update(ab4_kernel_rows=sum(counts[n::2]), ab4_rows_decoded=sum(counts[n + 1 :: 2]))
+        return bool(read[0]), fields
 
     def run(self, sink=None):
         """The windows, each ended by its one read, then the trailing steps."""

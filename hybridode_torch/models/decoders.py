@@ -6,8 +6,10 @@ Counterpart of hybridode/models/decoders.py:44-363:
   `sim_decoder_apply`) for the Roche field (`roche=True`) and the black-box
   neural field (`roche=False`);
 * the real-data ODE decoder (`RealDecoderSpec`, `init_real_decoder`,
-  `real_decoder_apply`), solved by `odeint` in plain PyTorch (explicit Adams
-  on a fixed grid by default), no kernel;
+  `real_decoder_apply`), solved by `odeint` (explicit Adams on a fixed grid by
+  default); a rank-2 explicit-Adams decode of `roche_real_field` on CUDA runs
+  the kernels `roche_real_ab4` (no gradient) or `roche_real_ab4_grad` (a
+  forward and a backward launch) where `ops.contract.real_ab4_kernel` says;
 * the real-data discrete benchmarks `tlstm` and `gruode` (`RealBenchmarkSpec`,
   `init_real_benchmark`, `gru_ode_cell`, `real_benchmark_apply`).
 
@@ -67,7 +69,8 @@ from ..fields import (
     roche_field,
     roche_real_field,
 )
-from ..ops.contract import decode_inputs, roche_kernel
+from ..ops import roche_real_ab4
+from ..ops.contract import decode_inputs, real_ab4_kernel, roche_kernel
 from ..ops.roche_dopri5 import roche_dopri5_per_row, roche_dopri5_per_row_grad
 from ..ops.roche_rk4 import roche_rk4_trajectory
 from ..solvers import FIXED_METHODS, odeint, odeint_dopri5, odeint_dopri5_adjoint
@@ -242,7 +245,13 @@ def real_decoder_apply(params, spec: RealDecoderSpec, init, actions, statics):
                  atol=spec.atol, max_steps=spec.max_steps)
 
     if init.ndim == 2:
-        h = odeint(field, init, ts, (params["ode"], ctx), **solve)
+        route = real_ab4_kernel(field, spec.method, params["ode"], init)
+        if route is None:
+            h = odeint(field, init, ts, (params["ode"], ctx), **solve)
+            roche_real_ab4.count_plain(init.shape[0])
+        else:
+            kernel = roche_real_ab4.roche_real_ab4 if route == "ab4" else roche_real_ab4.roche_real_ab4_grad
+            h = kernel(init, actions, params["ode"], ts, spec.n_substeps)
         return _real_output(params, h)[1:], h
 
     if spec.method not in FIXED_METHODS:

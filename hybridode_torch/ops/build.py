@@ -8,7 +8,10 @@ shared library with a plain C interface:
 without `--use_fast_math` (expf, powf, tanhf and division stay accurate).
 `roche_dopri5.cu` compiles once a state width D instead (4 <= D <= 12,
 `WIDTHS`), with `-DROCHE_DOPRI5_DIM=D`, into a library of its own: a process
-builds only the widths it launches, and the widths build in parallel. A
+builds only the widths it launches, and the widths build in parallel.
+`roche_real_ab4.cu` compiles once a (state width, hidden width) pair, D in
+`AB4_DIMS` and H in `AB4_HIDDEN`, with `-DROCHE_REAL_AB4_DIM=D
+-DROCHE_REAL_AB4_HIDDEN=H`, when a process first launches that pair. A
 library goes into `.torch_ext_build/` at the root of the checkout, named by a
 hash of the source, of every header it includes from `csrc/` (`#include
 "..."`, followed into the headers' own includes) and of the flags, so a
@@ -31,9 +34,17 @@ from dataclasses import dataclass
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.normpath(os.path.join(CSRC, os.pardir, os.pardir, os.pardir, ".torch_ext_build"))
-DIM_MACRO = "ROCHE_DOPRI5_DIM"  # set to the one state width a library of roche_dopri5.cu compiles
-WIDTHS = tuple(range(4, 13))  # the state widths the kernels are built for: 4 expert states + 0-8 learned
-TARGETS = (("roche_rk4", None), *(("roche_dopri5", D) for D in WIDTHS))  # every library: (source, width or None)
+# The macros a source compiled once a width sets to it: the one state width of a roche_dopri5.cu library, the state
+# and hidden widths of a roche_real_ab4.cu library.
+WIDTH_MACROS = {"roche_dopri5": ("ROCHE_DOPRI5_DIM",),
+                "roche_real_ab4": ("ROCHE_REAL_AB4_DIM", "ROCHE_REAL_AB4_HIDDEN")}
+WIDTHS = tuple(range(4, 13))  # the state widths the Roche kernels are built for: 4 expert states + 0-8 learned
+# The widths the real track's explicit-Adams kernels take, a library a (D, H) pair: 4 expert states and a GRU of up to
+# 28 (one state a lane of the row's warp, the GRU's weights' partial gradients in registers), and up to two of the
+# MLPs' hidden units a lane.
+AB4_DIMS, AB4_HIDDEN = range(4, 33), range(1, 65)
+# The libraries of one width each or of none: (source, width or None). roche_real_ab4's pairs are built on first use.
+TARGETS = (("roche_rk4", None), *(("roche_dopri5", D) for D in WIDTHS))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
@@ -71,13 +82,17 @@ def _sources(path: str, seen: list[str]) -> list[str]:
     return seen
 
 
+def _widths(dim) -> tuple:
+    return () if dim is None else tuple(dim) if isinstance(dim, tuple) else (int(dim),)
+
+
 def _label(name: str, dim) -> str:
-    return name if dim is None else f"{name}_d{dim}"
+    return name + "".join(f"_{k}{v}" for k, v in zip("dh", _widths(dim)))
 
 
 def _target(name: str, dim=None) -> tuple[str, str, tuple]:
     src = os.path.join(CSRC, f"{name}.cu")
-    flags = NVCC_FLAGS + (() if dim is None else (f"-D{DIM_MACRO}={int(dim)}",))
+    flags = NVCC_FLAGS + tuple(f"-D{m}={int(v)}" for m, v in zip(WIDTH_MACROS.get(name, ()), _widths(dim)))
     digest = hashlib.sha256()
     for path in _sources(src, []):
         with open(path, "rb") as f:
@@ -87,8 +102,8 @@ def _target(name: str, dim=None) -> tuple[str, str, tuple]:
 
 
 def build_all(targets=TARGETS) -> dict[str, Built]:
-    """Compile every library of `targets`, (source, state width or None) pairs, that is not built yet, in parallel;
-    raise if any fails. Keyed by the source's name, with `_d<width>` after it for a width."""
+    """Compile every library of `targets`, (source, width or None) pairs, that is not built yet, in parallel; raise
+    if any fails. Keyed by the source's name, with `_d<width>` after it for a width (`_d<D>_h<H>` for a pair)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     started, done = {}, {}
     t0 = time.perf_counter()
@@ -117,7 +132,8 @@ def build_all(targets=TARGETS) -> dict[str, Built]:
 
 @functools.cache
 def load(name: str, dim=None) -> ctypes.CDLL:
-    """The built library of one kernel (of one state width `dim` for roche_dopri5), compiled first if need be."""
+    """The built library of one kernel (of one state width `dim` for roche_dopri5, a (D, H) for roche_real_ab4),
+    compiled first if need be."""
     return ctypes.CDLL(build_all(((name, dim),))[_label(name, dim)].path)
 
 

@@ -1,5 +1,6 @@
-"""The Roche kernels' contract (`roche_rk4`, `roche_dopri5`): which decode a kernel computes (`roche_kernel`, from
-what it observes, with no switch), and the arguments both take (`check`) and their plain versions solve."""
+"""The kernels' contract: which decode a kernel computes, from what it observes, with no switch (`roche_kernel` for
+the simulation track's Roche kernels `roche_rk4` and `roche_dopri5`, `real_ab4_kernel` for the real track's
+`roche_real_ab4`), and the arguments the Roche kernels take (`check`) and their plain versions solve."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ from typing import Optional
 import torch
 
 from ..config import ROCHE_PARAM_NAMES
-from ..fields import FROZEN_KEYS, DoseContext
-from .build import WIDTHS
+from ..fields import FROZEN_KEYS, DoseContext, roche_real_field
+from .build import AB4_DIMS, AB4_HIDDEN, WIDTHS
 
 KERNEL_DEVICES = ("cuda",)  # the device types the kernels run on
 MAX_GRID = 8192  # ts is staged in the block's shared memory (48 KB without opt-in)
@@ -24,15 +25,37 @@ def roche_kernel(solve: Optional[str], ode, init, ctx) -> Optional[str]:
     no gradient is needed, the kernel of `solve`; where one is, "dopri5_grad" for a per-patient DOPRI5 decode whose
     frozen leaves (`FROZEN_KEYS`, the expert constants) need none, else None.
     """
-    takes = (solve is not None and init.shape[-1] in WIDTHS and ctx.times.shape[-1] == 1
-             and init.device.type in KERNEL_DEVICES and not torch._C._functorch.is_functorch_wrapped_tensor(init)
-             and torch._C._functorch.maybe_current_level() is None)
-    if not takes:
+    if not (solve is not None and init.shape[-1] in WIDTHS and ctx.times.shape[-1] == 1 and _on_kernel_device(init)):
         return None
-    if not torch.is_grad_enabled() or not (init.requires_grad or any(p.requires_grad for p in ode.parameters())):
+    if not _needs_grad(ode, init):
         return solve
     frozen = [p for name, p in ode.named_parameters() if name.partition(".")[0] in FROZEN_KEYS]
     return "dopri5_grad" if solve == "dopri5" and not any(p.requires_grad for p in frozen) else None
+
+
+def real_ab4_kernel(field, method: str, ode, init) -> Optional[str]:
+    """The kernel that computes a real-track decode, or None.
+
+    The explicit-Adams solve (`method`) of `roche_real_field` from a rank-2 float32 `init` (B, D), D in `AB4_DIMS`
+    and the field's hidden width in `AB4_HIDDEN`, on a device of `KERNEL_DEVICES` and outside any `torch.func`
+    transform: "ab4" where no gradient is needed, else "ab4_grad" (every leaf trains through it). Rank-3 per-interval decodes, the
+    other methods and fields keep the plain solver.
+    """
+    if not (field is roche_real_field and method == "explicit_adams" and init.dim() == 2
+            and init.dtype == torch.float32 and init.shape[-1] in AB4_DIMS
+            and ode["dx1_net"][0]["w"].shape[-1] in AB4_HIDDEN and _on_kernel_device(init)):
+        return None
+    return "ab4_grad" if _needs_grad(ode, init) else "ab4"
+
+
+def _on_kernel_device(init) -> bool:
+    """A state on a kernel device, outside any `torch.func` transform (the kernels read raw device pointers)."""
+    return (init.device.type in KERNEL_DEVICES and not torch._C._functorch.is_functorch_wrapped_tensor(init)
+            and torch._C._functorch.maybe_current_level() is None)
+
+
+def _needs_grad(ode, init) -> bool:
+    return torch.is_grad_enabled() and (init.requires_grad or any(p.requires_grad for p in ode.parameters()))
 
 
 def decode_inputs(ode, init, ctx, ts) -> tuple:

@@ -104,25 +104,37 @@ def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
     batched and in turn, the checkpoint_steps probe (0 each); from phase 3b, the per-row DOPRI5 kernel's
     numbers at evaluate's shape and its one launch a forecast request; and from phase 3c and the training paths,
     the DOPRI5 pair with gradients' numbers and its launches on every training path, which `grad_route_faults`
-    holds to the route."""
+    holds to the route; from phase 3d and the real-track paths of phases 6 and 9, the real AB4 pair's and the no-grad
+    AB4 kernel's numbers and launches, which `ab4_route_faults` holds to each kernel's route."""
     row = dict(max_abs_err=1e-6, ms=0.19, device_ms=0.06, plain_ms=260.0, bound_ms=0.0014, bound_by="operations")
     grad_row = dict(row, err=[2e-6, 3e-6, 1e-6], forward_device_ms=0.03, backward_device_ms=0.02)
     on, off = 3, 0
     rk4 = dict(roche_rk4_launches=4, roche_dopri5_grad_launches=off)
     none = dict(roche_rk4_launches=0, roche_dopri5_grad_launches=off)
+    ab4 = {p: on for p in ("run_real_hybrid", "run_real_held", "run_real_expert")}
+    other = dict(run_real_neural=off, run_real_2nd=off, run_real_tlstm=off, run_real_gruode=off)
+    real = dict(none, roche_real_ab4_grad_launches=dict(ab4, **other, run_real_ensemble=off, run_real_residual=off,
+                                                        predict_test=off),
+                roche_real_ab4_launches=dict(ab4, **other, run_real_ensemble=2, run_real_residual=2, predict_test=2))
     trained = dict(none, roche_dopri5_grad_launches=on)
     more = dict(evaluate_horizon=rk4, evaluate_ensemble_horizon=rk4, flow_evaluate=rk4, flow=trained,
                 members=dict(none, roche_dopri5_grad_launches=dict(expert=on, neural=off)), ensemble=none,
                 residual=none, run_eval=none)
     fused = dict(roche_rk4_launches=dict(gpu=0, vmap=0),
-                 roche_dopri5_grad_launches=dict(gpu=on, gpu_host_loop=on, real=off, vmap=off, seq=on))
-    line = chip_smoke.kernels_line([row], 4, dict(trained, checkpoint_steps=none), none, more,
+                 roche_dopri5_grad_launches=dict(gpu=on, gpu_host_loop=on, real=off, vmap=off, seq=on),
+                 roche_real_ab4_grad_launches=dict(real=on, real_vmap=off),
+                 roche_real_ab4_launches=dict(real=on, real_vmap=off))
+    ab4_row = dict(row, record_device_ms=0.3, backward_device_ms=0.45, bound_ms=0.003, solve_ms=0.4,
+                   solve_device_ms=0.2, solve_plain_ms=110.0, solve_bound_ms=0.001, solve_is_record=True,
+                   rel_diff_plain=dict(solve=6e-7, trajectory=7e-7, y0=1e-5, kel=2e-5))
+    line = chip_smoke.kernels_line([row], 4, dict(trained, checkpoint_steps=none), real, more,
                                    dict(train=none, create_data=dict(none, native=none),
                                         restarts=dict(vmap=none, seq=none)),
                                    fused, dict(evaluate_sharded=rk4, dp_fused=trained),
                                    [dict(row, err=2e-4), dict(row, err=3e-4)], dict(launches_per_request=1.0),
-                                   [grad_row, dict(grad_row, err=[4e-6, 0.0, 0.0])])
-    k, dopri5, grad = line["kernels"]
+                                   [grad_row, dict(grad_row, err=[4e-6, 0.0, 0.0])],
+                                   [ab4_row, dict(ab4_row, rel_diff_plain=dict(solve=8e-7, trajectory=5e-7, y0=3e-5))])
+    k, dopri5, grad, real_ab4, solve_ab4 = line["kernels"]
     paths = k["launches_by_path"]
     assert k["launches"] == 4 and paths["evaluate_sharded"] == 4
     assert paths["fused_dp"] == 0 and paths["fused_vmap"] == 0
@@ -137,6 +149,22 @@ def test_kernels_line_counts_the_sharded_evaluation_and_the_dp_training_path():
     assert chip_smoke.grad_route_faults(grad["launches_by_path"]) == []
     faults = chip_smoke.grad_route_faults(dict(grad["launches_by_path"], run_simulation=0, run_simulation_lockstep=2))
     assert [f.split(":")[0] for f in faults] == ["run_simulation", "run_simulation_lockstep"]
+    assert real_ab4["name"] == "roche_real_ab4_grad" and real_ab4["bound_ms"] == 0.003
+    assert real_ab4["max_err"] == 3e-5
+    assert {p for p, n in real_ab4["launches_by_path"].items() if n} == \
+        set(chip_smoke.AB4_ROUTE_PATHS["roche_real_ab4_grad"])
+    assert real_ab4["launches_by_path"]["predict_test"] == real_ab4["launches_by_path"]["fused_real_vmap"] == 0
+    assert chip_smoke.ab4_route_faults(real_ab4["launches_by_path"]) == []
+    faults = chip_smoke.ab4_route_faults(dict(real_ab4["launches_by_path"], fused_real=0, predict_test=1))
+    assert sorted(f.split(":")[0] for f in faults) == ["fused_real", "predict_test"]
+    assert solve_ab4["name"] == "roche_real_ab4" and solve_ab4["max_err"] == 8e-7 and solve_ab4["solve_is_record"]
+    assert (solve_ab4["device_ms"], solve_ab4["plain_ms"], solve_ab4["bound_ms"]) == (0.2, 110.0, 0.001)
+    assert {p for p, n in solve_ab4["launches_by_path"].items() if n} == \
+        set(chip_smoke.AB4_ROUTE_PATHS["roche_real_ab4"])
+    assert chip_smoke.ab4_route_faults(solve_ab4["launches_by_path"], "roche_real_ab4") == []
+    faults = chip_smoke.ab4_route_faults(dict(solve_ab4["launches_by_path"], fused_real=0, fused_real_vmap=1),
+                                         "roche_real_ab4")
+    assert sorted(f.split(":")[0] for f in faults) == ["fused_real", "fused_real_vmap"]
 
 
 def test_phase_8_holds_the_native_generator_against_data_s123():
